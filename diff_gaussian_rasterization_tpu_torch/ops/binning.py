@@ -1,0 +1,141 @@
+"""Tile binning: instance expansion, depth sort, per-tile ranges.
+
+PyTorch port of the JAX package's ``ops/binning.py`` in its unaligned form
+(``align=1``): every live (Gaussian, tile) pair becomes one instance, the
+instances are sorted by (tile, depth) with a stable sort, and each tile's
+instances form one contiguous segment ``[tile_start, tile_stop)``.
+
+Everything is static-shape: ``max_instances`` is the length of the instance
+arrays whatever the scene, and the true count is reported next to an
+``overflow`` flag.
+
+**Overflow rule.**  Instances are enumerated Gaussian by Gaussian (in index
+order) and, within one Gaussian, row-major over its tile rectangle.  When
+the true count exceeds ``max_instances``, the instances past the budget *in
+that enumeration order* are dropped: the tail of the highest-index
+Gaussians, whatever their depth.  Nothing is dropped by depth.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .projection import Preprocessed
+
+
+class Binned(NamedTuple):
+    gauss_id: torch.Tensor    # (I,) int64 source Gaussian, sorted order
+    tile_id: torch.Tensor     # (I,) int32 sorted; num_tiles if invalid
+    valid: torch.Tensor       # (I,) bool
+    tile_start: torch.Tensor  # (T,) int32 [start, stop) into the instances
+    tile_stop: torch.Tensor   # (T,) int32
+    num_rendered: torch.Tensor  # () int64: true (uncapped) instance count
+    overflow: torch.Tensor    # () bool
+
+
+def bin_gaussians(prep: Preprocessed, tiles_x: int, tiles_y: int,
+                  max_instances: int, tile_w: int = 0, tile_h: int = 0,
+                  alpha_min: float = 15.0 / 255.0,
+                  margin_px: float = 0.0) -> Binned:
+    """Bin splats into per-tile depth-sorted instance segments.
+
+    ``tile_w``/``tile_h`` (pixels) enable the exact ellipse-tile overlap
+    cull; 0 disables it (rectangle only).  ``alpha_min`` must match the
+    blend's skip threshold for the cull to leave the image unchanged, and
+    ``margin_px`` must match the margin that dilated the preprocess rects.
+    See the module docstring for what overflow drops.
+    """
+    dev = prep.tiles_touched.device
+    p = prep.tiles_touched.shape[0]
+    num_tiles = tiles_x * tiles_y
+    cap = max_instances
+    tt = prep.tiles_touched.to(torch.int64)
+    ends = torch.cumsum(tt, 0)                 # inclusive prefix sum
+    starts = ends - tt                         # exclusive
+    total = ends[-1]
+
+    i = torch.arange(cap, dtype=torch.int64, device=dev)
+    valid = i < torch.clamp_max(total, cap)
+
+    # Instance i belongs to the Gaussian whose [start, end) covers it:
+    # the number of ends <= i.  Past the true total every instance maps to
+    # the last Gaussian, as the JAX expansion does.
+    g = torch.clamp_max(torch.searchsorted(ends, i, right=True), p - 1)
+    local = i - starts[g]
+    rect_min = prep.rect_min[g].to(torch.int64)
+    rw = torch.clamp_min(prep.rect_max[g, 0].to(torch.int64) - rect_min[:, 0],
+                         1)
+    dy = torch.div(local, rw, rounding_mode="floor")
+    dx = local - dy * rw
+    tx = rect_min[:, 0] + dx
+    ty = rect_min[:, 1] + dy
+    depth = prep.depth.detach()[g]
+
+    # Exact ellipse-tile overlap: a tile is live iff the maximum of the
+    # concave quadratic ``power`` over the tile's pixel-center box reaches
+    # the alpha_min level -L, L = ln(opac / alpha_min): 0 when the center
+    # lies inside the box, else the best of the four box edges, where the
+    # 1-D maximizer along an edge is the clamped critical point.
+    if tile_w > 0 and tile_h > 0:
+        conic = prep.conic.detach()[g]
+        xy = prep.xy.detach()[g]
+        op = prep.opacity.detach().reshape(-1)
+        lvl = torch.log(torch.clamp_min(op, 1e-12) / alpha_min)[g]
+        ca, cb, cc = conic[:, 0], conic[:, 1], conic[:, 2]
+        f32 = torch.float32
+        dx0 = tx.to(f32) * tile_w - xy[:, 0] - margin_px
+        dx1 = dx0 + (tile_w - 1) + 2.0 * margin_px
+        dy0 = ty.to(f32) * tile_h - xy[:, 1] - margin_px
+        dy1 = dy0 + (tile_h - 1) + 2.0 * margin_px
+        inside = (dx0 <= 0) & (dx1 >= 0) & (dy0 <= 0) & (dy1 >= 0)
+        safe_a = torch.clamp_min(ca, 1e-12)
+        safe_c = torch.clamp_min(cc, 1e-12)
+
+        def edge_pow_x(a):  # max over dy in [dy0, dy1] at fixed dx = a
+            yy = torch.minimum(torch.maximum(-cb * a / safe_c, dy0), dy1)
+            return -0.5 * (ca * a * a + cc * yy * yy) - cb * a * yy
+
+        def edge_pow_y(b):  # max over dx in [dx0, dx1] at fixed dy = b
+            xx = torch.minimum(torch.maximum(-cb * b / safe_a, dx0), dx1)
+            return -0.5 * (ca * xx * xx + cc * b * b) - cb * xx * b
+
+        maxpow = torch.maximum(
+            torch.maximum(edge_pow_x(dx0), edge_pow_x(dx1)),
+            torch.maximum(edge_pow_y(dy0), edge_pow_y(dy1)))
+        live = valid & (inside | (maxpow >= -lvl - 1e-4))
+    else:
+        live = valid
+    tile = torch.where(live, ty * tiles_x + tx,
+                       torch.full_like(tx, num_tiles))
+
+    # Stable lexicographic sort on (tile, depth): sort by the minor key
+    # first, then stably by the major key; ties keep instance order.
+    # Invalid instances carry the tile sentinel and sort last.
+    o1 = torch.sort(depth, stable=True).indices
+    o2 = torch.sort(tile[o1], stable=True).indices
+    order = o1[o2]
+    tile_s = tile[order].to(torch.int32)
+    g_s = g[order]
+
+    t = torch.arange(num_tiles, dtype=torch.int32, device=dev)
+    tile_start = torch.searchsorted(tile_s, t, out_int32=True)
+    tile_stop = torch.searchsorted(tile_s, t, right=True, out_int32=True)
+
+    return Binned(
+        gauss_id=g_s,
+        tile_id=tile_s,
+        valid=tile_s < num_tiles,
+        tile_start=tile_start,
+        tile_stop=tile_stop,
+        num_rendered=total,
+        overflow=total > cap,
+    )
+
+
+def default_max_instances(p: int, multiplier: int) -> int:
+    """The default instance budget: ``p * multiplier`` rounded up to a
+    multiple of 1024 (at least 1024)."""
+    n = max(p * multiplier, 1024)
+    return -(-n // 1024) * 1024

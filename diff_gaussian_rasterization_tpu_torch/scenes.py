@@ -1,0 +1,84 @@
+"""Seeded synthetic scenes at the scale the repository measures.
+
+``bench_scene`` draws the benchmark scene with numpy ``RandomState(seed)``
+in the same order and with the same distributions as the JAX package's
+``bench.py`` (``make_scene``), so both packages render the same Gaussians:
+P Gaussians in a 4 x 4 x 5.2 box in front of an identity camera at
+1200x680, tan(fov/2) = 0.82 x 0.47.  ``random_model`` makes a
+``GaussianModel`` of the same Gaussians with random SH bands.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from .camera import Camera
+from .models.gaussians import GaussianModel
+from .ops.sh import num_sh_coeffs, rgb_to_sh0
+
+BENCH_P, BENCH_H, BENCH_W = 100_000, 680, 1200
+BENCH_TANFOVX, BENCH_TANFOVY = 0.82, 0.47
+
+
+def bench_camera(viewmatrix=None, height=BENCH_H, width=BENCH_W,
+                 device="cuda") -> Camera:
+    if viewmatrix is None:
+        viewmatrix = torch.eye(4, dtype=torch.float32, device=device)
+    return Camera(viewmatrix=viewmatrix, tanfovx=BENCH_TANFOVX,
+                  tanfovy=BENCH_TANFOVY, height=height, width=width)
+
+
+def bench_scene(seed=0, p=BENCH_P, height=BENCH_H, width=BENCH_W,
+                device="cuda"):
+    """``(means3D, kwargs)`` of the benchmark scene; ``kwargs`` holds
+    scales, rotations, opacities, colors_precomp, bg and gt_depth."""
+    rng = np.random.RandomState(seed)
+    means = rng.uniform(-2, 2, (p, 3))
+    means[:, 2] = rng.uniform(0.8, 6.0, p)
+    quats = rng.normal(size=(p, 4))
+    quats /= np.linalg.norm(quats, axis=1, keepdims=True)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    kw = dict(
+        scales=t(np.exp(rng.uniform(np.log(0.01), np.log(0.05), (p, 3)))),
+        rotations=t(quats),
+        opacities=t(rng.uniform(0.2, 0.95, (p, 1))),
+        colors_precomp=t(rng.uniform(0, 1, (p, 3))),
+        bg=torch.zeros(3, dtype=torch.float32, device=device),
+        gt_depth=t(rng.uniform(0.8, 6, (height, width))),
+    )
+    return t(means), kw
+
+
+def random_model(seed=0, p=BENCH_P, sh_degree=3,
+                 device="cuda") -> GaussianModel:
+    """A model with the bench scene's Gaussians (geometry, opacities, and
+    colors as the SH DC band) and random higher SH bands of
+    ``sh_degree``."""
+    means, kw = bench_scene(seed=seed, p=p, height=1, width=1, device=device)
+    rest = np.random.RandomState(seed).normal(
+        scale=0.3, size=(p, num_sh_coeffs(sh_degree), 3))
+    sh = torch.as_tensor(rest.astype(np.float32), device=device)
+    sh[:, 0] = rgb_to_sh0(kw["colors_precomp"])
+    op = kw["opacities"]
+    return GaussianModel(
+        means, torch.log(kw["scales"]), kw["rotations"],
+        torch.log(op / (1.0 - op)), sh,
+        torch.ones(p, dtype=torch.bool, device=device))
+
+
+def orbit_view(angle_deg: float, device="cuda"):
+    """A view matrix (row-vector convention) rotated by ``angle_deg`` about
+    the y axis around the point (0, 0, 3.4), the scene's center."""
+    a = math.radians(angle_deg)
+    c, s = math.cos(a), math.sin(a)
+    rot = torch.tensor([[c, 0.0, -s], [0.0, 1.0, 0.0], [s, 0.0, c]],
+                       dtype=torch.float32, device=device)
+    center = torch.tensor([0.0, 0.0, 3.4], dtype=torch.float32, device=device)
+    # p_view = (p - center) @ rot + center
+    v = torch.eye(4, dtype=torch.float32, device=device)
+    v[:3, :3] = rot
+    v[3, :3] = center - center @ rot
+    return v
