@@ -1,13 +1,16 @@
 """Gaussian map model (PyTorch port of the JAX package's
-``models/gaussians.py``, parameters and activations).
+``models/gaussians.py``): parameters, activations, and the densification
+statistics.
 
 A static-capacity set: the model owns ``capacity`` slots and an ``active``
-mask; inactive slots render with zero opacity.  Densify and prune come with
-the training slice of the port.
+mask; inactive slots render with zero opacity.  The densification signal
+is the screen-space position gradient, read from a zero ``means2D`` input
+(``DensifyState``).  Densify and prune themselves are not ported yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -77,3 +80,22 @@ def init_model(capacity: int, sh_degree: int = 0, dtype=torch.float32,
             scales_log[:n] = torch.log(torch.as_tensor(scales, **kw))
     return GaussianModel(means3D, scales_log, rotations, opacities_logit, sh,
                          act)
+
+
+@dataclasses.dataclass(frozen=True)
+class DensifyState:
+    """Screen-gradient statistics accumulated between densify steps."""
+
+    grad_accum: torch.Tensor  # (N,) sum of ||dL/d(ndc xy)|| over visible views
+    denom: torch.Tensor       # (N,) views in which the Gaussian was visible
+
+    @classmethod
+    def zero(cls, capacity: int, dtype=torch.float32, device="cuda"):
+        z = lambda: torch.zeros(capacity, dtype=dtype, device=device)
+        return cls(grad_accum=z(), denom=z())
+
+    def update(self, means2D_grad, visible) -> "DensifyState":
+        g = torch.linalg.norm(means2D_grad, dim=-1)
+        vis = visible.to(g.dtype)
+        return DensifyState(grad_accum=self.grad_accum + g * vis,
+                            denom=self.denom + vis)

@@ -9,6 +9,14 @@ Everything is static-shape: ``max_instances`` is the length of the instance
 arrays whatever the scene, and the true count is reported next to an
 ``overflow`` flag.
 
+For the backward, binning also returns the map from the pre-sort
+(Gaussian-major) enumeration to sorted positions, ``inv``, and each
+Gaussian's contiguous run ``[gauss_start, gauss_stop)`` in that
+enumeration: the per-Gaussian gradient is the sum of the gradient rows at
+``inv[j]`` over the run (``kernels/segment_sum.py``).  The JAX package's
+128-aligned slots, which exist for the TPU's DMA blocks, are not ported:
+gradient rows live at sorted positions.
+
 **Overflow rule.**  Instances are enumerated Gaussian by Gaussian (in index
 order) and, within one Gaussian, row-major over its tile rectangle.  When
 the true count exceeds ``max_instances``, the instances past the budget *in
@@ -33,6 +41,9 @@ class Binned(NamedTuple):
     tile_stop: torch.Tensor   # (T,) int32
     num_rendered: torch.Tensor  # () int64: true (uncapped) instance count
     overflow: torch.Tensor    # () bool
+    inv: torch.Tensor         # (I,) int32 pre-sort instance -> sorted position
+    gauss_start: torch.Tensor  # (P,) int32 pre-sort run of each Gaussian,
+    gauss_stop: torch.Tensor   # (P,) int32 clipped to the budget
 
 
 def bin_gaussians(prep: Preprocessed, tiles_x: int, tiles_y: int,
@@ -123,6 +134,10 @@ def bin_gaussians(prep: Preprocessed, tiles_x: int, tiles_y: int,
     tile_start = torch.searchsorted(tile_s, t, out_int32=True)
     tile_stop = torch.searchsorted(tile_s, t, right=True, out_int32=True)
 
+    # the inverse permutation (unique indices: a deterministic scatter)
+    inv = torch.empty(cap, dtype=torch.int32, device=dev)
+    inv[order] = torch.arange(cap, dtype=torch.int32, device=dev)
+
     return Binned(
         gauss_id=g_s,
         tile_id=tile_s,
@@ -131,6 +146,9 @@ def bin_gaussians(prep: Preprocessed, tiles_x: int, tiles_y: int,
         tile_stop=tile_stop,
         num_rendered=total,
         overflow=total > cap,
+        inv=inv,
+        gauss_start=torch.clamp_max(starts, cap).to(torch.int32),
+        gauss_stop=torch.clamp_max(ends, cap).to(torch.int32),
     )
 
 

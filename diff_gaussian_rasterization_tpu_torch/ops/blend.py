@@ -1,7 +1,7 @@
-"""Front-to-back alpha blending as masked prefix products (forward half).
+"""Front-to-back alpha blending as masked prefix products, and its VJP.
 
-PyTorch port of the forward functions of the JAX package's ``ops/blend.py``.
-Per pixel, instances sorted front to back:
+PyTorch port of the JAX package's ``ops/blend.py`` (direct splat form
+only).  Per pixel, instances sorted front to back:
 
 - ``a_i = 1 - alpha_i`` where the instance passes the validity tests
   (``power <= 0`` and ``alpha >= alpha_min``), else 1;
@@ -12,6 +12,12 @@ Per pixel, instances sorted front to back:
 - blend weights are ``w_i = alpha_i * P_{i-1} * contrib_i``, and the median
   crossing is ``contrib & (P_{i-1} > 0.5) & (P_i < 0.5)``, which fires at
   most once per pixel.
+
+The backward (:func:`blend_chunk_bwd`) is the closed-form VJP of one chunk:
+it re-derives the same weights in the same forward order and carries the
+running prefix ``pre_all`` of ``w * s``, where ``s`` is an instance's
+features dotted with its pixel's cotangents, so the gradient of every
+alpha needs only the pixel's total and that prefix.
 
 Every function takes any number of leading batch dimensions: instance
 tensors are ``[..., G, k]``, pixel tensors ``[..., Q]``, masks and weights
@@ -142,7 +148,10 @@ def blend_chunk_fwd(carry: BlendCarry, xy, conic, opacity, color, depth,
     crossf = cross.to(w.dtype)
     cww = crossf * w
 
-    d2 = depth * depth
+    # the variance and uncertainty moments read the pose-stopped copy: same
+    # values, and under autograd (the oracle) the reference's routing, in
+    # which the direct 2 w (d - gt) term reaches the means but not the pose
+    d2 = depth_med * depth_med
     wsum = lambda f: torch.einsum("...g,...gq->...q", f, w)
     usum = lambda f: torch.einsum("...g,...gq->...q", f, cww)
     zero_i = torch.zeros((), dtype=torch.int32, device=dev)
@@ -158,13 +167,128 @@ def blend_chunk_fwd(carry: BlendCarry, xy, conic, opacity, color, depth,
         median=carry.median + torch.einsum("...g,...gq->...q", depth_med,
                                            crossf),
         var_dd=carry.var_dd + wsum(d2),
-        var_d=carry.var_d + wsum(depth),
+        var_d=carry.var_d + wsum(depth_med),
         n_contrib=torch.maximum(carry.n_contrib, torch.where(
             contrib, idx, zero_i).amax(dim=-2)),
         n_valid=carry.n_valid + contrib.sum(dim=-2, dtype=torch.int32),
         midx=torch.maximum(carry.midx, torch.where(
             cross, gidx, neg_i).amax(dim=-2)),
         ucross_dd=carry.ucross_dd + usum(d2),
-        ucross_d=carry.ucross_d + usum(depth),
+        ucross_d=carry.ucross_d + usum(depth_med),
         ucross_w=carry.ucross_w + cww.sum(dim=-2),
     )
+
+
+# --------------------------------------------------------------------------
+# backward
+# --------------------------------------------------------------------------
+
+# Rows of the per-pixel backward constants built by bwd_pixel_inputs.
+PIX_ROWS = 10
+
+
+class BlendBwdCarry(NamedTuple):
+    """Running per-pixel state of the backward pass (all [..., Q])."""
+
+    prod: torch.Tensor     # the forward's running product
+    pre_all: torch.Tensor  # inclusive prefix of w * s
+
+
+def init_bwd_carry(shape, dtype=torch.float32, device="cuda") -> BlendBwdCarry:
+    shape = tuple(shape)
+    return BlendBwdCarry(
+        prod=torch.ones(shape, dtype=dtype, device=device),
+        pre_all=torch.zeros(shape, dtype=dtype, device=device))
+
+
+def bwd_pixel_inputs(gt, tot_c, tot_d, tot_w, tot_v, t_final, dL_dc, dL_dd,
+                     dL_dw, dL_dvar, dL_dmed, dL_dtf):
+    """The per-pixel constants of the backward, ``[..., 10, Q]``.
+
+    Rows 0-5 are ``pixcot``, the cotangents that instance features
+    ``[r, g, b, d, d^2, 1]`` are dotted with (``(d - gt)^2`` of the
+    variance expands into them, gt being a pixel constant): dL_dc (3),
+    dL_dd - 2 gt dL_dvar, dL_dvar, dL_dw + gt^2 dL_dvar.  Then dL_dd, gt,
+    ``tot_all`` (the same dot product with the pixel's forward totals, plus
+    ``t_final * dL_dtf``: the background's gradient reaches the core as the
+    cotangent of ``t_final``) and dL_dmed.  ``tot_c``/``dL_dc`` are
+    [..., 3, Q], the rest [..., Q].
+    """
+    tot_all = ((dL_dc * tot_c).sum(dim=-2) + dL_dd * tot_d + dL_dvar * tot_v
+               + dL_dw * tot_w + t_final * dL_dtf)
+    rows = [dL_dd - 2.0 * gt * dL_dvar, dL_dvar, dL_dw + gt * gt * dL_dvar,
+            dL_dd, gt, tot_all, dL_dmed]
+    return torch.cat([dL_dc, torch.stack(rows, dim=-2)], dim=-2)
+
+
+def blend_chunk_bwd(carry: BlendBwdCarry, xy, conic, opacity, color, depth,
+                    valid, px, py, pix, cfg: RasterConfig,
+                    want_med: bool = True, want_var: bool = True):
+    """One forward-ordered backward chunk.
+
+    Args: the instance fields as for :func:`blend_chunk_fwd` (``depth`` is
+    the depth column; its median/variance copy has the same values),
+    ``valid`` [..., G, Q], ``pix`` [..., 10, Q] from
+    :func:`bwd_pixel_inputs`.  ``want_med``/``want_var`` False leave the
+    median and variance columns zero (their cotangents are absent).
+
+    Returns (new carry, rows [..., G, 12]) with the columns of
+    ``kernels/render.py``'s ``ROW_COLUMNS``: d_xy (pixel units), the true
+    gradient of the packed conic (A, B, C), d_opacity, d_color, d_depth
+    (the depth output's term), d_depth_var (the 2 w (d - gt) term) and
+    d_depth_med (the median crossing).  The per-instance sums over pixels
+    are taken directly, with ``dx = x - px``, as the CUDA kernel takes them.
+    """
+    power = splat_power(xy, conic, px, py)
+    g = torch.exp(power)
+    alpha = torch.clamp_max(opacity[..., None] * g, cfg.alpha_cap)
+    v = valid & (power <= 0.0) & (alpha >= cfg.alpha_min)
+    oma = 1.0 - alpha
+    a_eff = torch.where(v, oma, torch.ones_like(alpha))
+    p_incl = carry.prod[..., None, :] * torch.cumprod(a_eff, dim=-2)
+    t_excl = torch.cat([carry.prod[..., None, :], p_incl[..., :-1, :]],
+                       dim=-2)
+    contrib = v & (p_incl >= cfg.t_terminate)
+    contribf = contrib.to(g.dtype)
+    w = contribf * alpha * t_excl
+
+    pixcot = pix[..., 0:6, :]
+    dL_dd, gt, tot_all, dL_dmed = (pix[..., k, :] for k in range(6, 10))
+    feats = torch.cat([color, depth[..., None], (depth * depth)[..., None],
+                       torch.ones_like(depth)[..., None]], dim=-1)
+    s = torch.einsum("...gf,...fq->...gq", feats, pixcot)
+    pre_all = carry.pre_all[..., None, :] + torch.cumsum(w * s, dim=-2)
+    # dL/dalpha_i * T_i: the strict suffix tot_all - prefix, over (1 - a_i);
+    # alpha <= alpha_cap < 1 needs no guard.  Like the reference, the cap
+    # is ignored: dalpha/dpower = op * G even where alpha = alpha_cap.
+    d_alpha = contribf * (t_excl * s - (tot_all[..., None, :] - pre_all)
+                          * (1.0 / oma))
+    e = d_alpha * g
+    dx = xy[..., 0:1] - px[..., None, :]
+    dy = xy[..., 1:2] - py[..., None, :]
+    s_e = e.sum(dim=-1)
+    s_dx, s_dy = (e * dx).sum(dim=-1), (e * dy).sum(dim=-1)
+    s_dxx, s_dyy = (e * dx * dx).sum(dim=-1), (e * dy * dy).sum(dim=-1)
+    s_dxy = (e * dx * dy).sum(dim=-1)
+
+    op = opacity
+    A, B, C = conic[..., 0], conic[..., 1], conic[..., 2]
+    wsum = lambda f: (w * f[..., None, :]).sum(dim=-1)
+    zero = torch.zeros_like(s_e)
+    if want_var:
+        d_var = 2.0 * (w * (depth[..., None] - gt[..., None, :])
+                       * pixcot[..., 4:5, :]).sum(dim=-1)
+    else:
+        d_var = zero
+    if want_med:
+        cross = contrib & (t_excl > 0.5) & (p_incl < 0.5)
+        d_med = (cross.to(g.dtype) * dL_dmed[..., None, :]).sum(dim=-1)
+    else:
+        d_med = zero
+    rows = torch.stack([
+        -op * (A * s_dx + B * s_dy), -op * (C * s_dy + B * s_dx),
+        -0.5 * op * s_dxx, -op * s_dxy, -0.5 * op * s_dyy, s_e,
+        wsum(pixcot[..., 0, :]), wsum(pixcot[..., 1, :]),
+        wsum(pixcot[..., 2, :]), wsum(dL_dd), d_var, d_med], dim=-1)
+    return BlendBwdCarry(prod=p_incl[..., -1, :],
+                         pre_all=pre_all[..., -1, :]), rows

@@ -39,6 +39,11 @@ SIGNATURES = {
                        _F, _F, _F, _P],
         "segment_sum": [_P, _P, _P, _P, _P, _I, _P],
     },
+    "render_bwd": {
+        "render_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _F, _F, _F, _I, _I, _P],
+        "segment_sum_rows": [_P, _P, _P, _P, _P, _I, _I, _P],
+    },
 }
 
 _libs: dict = {}

@@ -36,6 +36,10 @@
 // terminated.  Register blocking, cp.async double buffering and a
 // persistent tile loop are left for later.
 //
+// The per-pair test's expressions live in blend_common.cuh, shared with
+// the backward kernel (render_bwd.cu), so both passes make the same
+// decisions bit for bit.
+//
 // Numerics.  Built without --use_fast_math and with --fmad=false, so each
 // operation rounds as the plain PyTorch version's elementwise ops do; the
 // sequential T *= (1 - alpha) still rounds differently from the plain
@@ -49,16 +53,15 @@
 
 #include <cuda_runtime.h>
 
+#include "blend_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;  // threads per tile block
-constexpr int kBatch = 256;    // instances staged in shared memory per round
-constexpr int kFeat = 11;      // floats per instance row
+using blend::kFeat;
+using blend::kThreads;
+using blend::Params;
 
-struct Params {
-  int tiles_x, tile_w, tile_h, width, height;
-  float alpha_cap, alpha_min, t_terminate;
-};
+constexpr int kBatch = 256;  // instances staged in shared memory per round
 
 template <int PPT>  // pixels per thread
 __global__ void __launch_bounds__(kThreads)
@@ -72,8 +75,6 @@ render_fwd_kernel(const float* __restrict__ feat,
 
   const int t = blockIdx.x;
   const int q = prm.tile_w * prm.tile_h;
-  const int tx = t % prm.tiles_x;
-  const int ty = t / prm.tiles_x;
   const int start = tile_start[t];
   const int stop = tile_stop[t];
 
@@ -85,12 +86,7 @@ render_fwd_kernel(const float* __restrict__ feat,
 
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
-    const int qi = threadIdx.x + k * kThreads;
-    const int pxi = tx * prm.tile_w + qi % prm.tile_w;
-    const int pyi = ty * prm.tile_h + qi / prm.tile_w;
-    px[k] = (float)pxi;
-    py[k] = (float)pyi;
-    done[k] = !(qi < q && pxi < prm.width && pyi < prm.height);
+    done[k] = !blend::pixel_of(prm, t, k, px[k], py[k]);
     T[k] = 1.f;
     c0[k] = c1[k] = c2[k] = dep[k] = wgt[k] = med[k] = 0.f;
     vdd[k] = vd[k] = udd[k] = ud[k] = uw[k] = 0.f;
@@ -113,16 +109,16 @@ render_fwd_kernel(const float* __restrict__ feat,
 
     for (int j = 0; j < n; ++j) {
       const float* f = s_feat + j * kFeat;
-      const float gx = f[0], gy = f[1], A = f[2], B = f[3], C = f[4];
-      const float op = f[5];
+      const blend::Splat g = blend::load_splat(f);
 #pragma unroll
       for (int k = 0; k < PPT; ++k) {
         if (done[k]) continue;
-        const float dx = gx - px[k];
-        const float dy = gy - py[k];
-        const float power = -0.5f * (A * dx * dx + C * dy * dy) - B * dx * dy;
+        const float dx = g.x - px[k];
+        const float dy = g.y - py[k];
+        const float power = blend::splat_power(g, dx, dy);
         if (power > 0.f) continue;
-        const float alpha = fminf(prm.alpha_cap, op * expf(power));
+        const float G = expf(power);
+        const float alpha = blend::splat_alpha(g, G, prm);
         if (alpha < prm.alpha_min) continue;
         const float test_T = T[k] * (1.f - alpha);
         if (test_T < prm.t_terminate) {

@@ -1,4 +1,5 @@
-"""The forward render core: the CUDA kernel and its plain PyTorch version.
+"""The render core, forward and backward: the CUDA kernels and their plain
+PyTorch versions.
 
 ``core_fwd`` blends every tile's depth-sorted instance segment front to back
 and returns the per-pixel outputs (:class:`CoreOutputs`).  It is the port of
@@ -7,6 +8,14 @@ JAX package.  On a CUDA tensor it launches the hand-written kernel
 ``csrc/render_fwd.cu``; on a CPU tensor it runs ``core_fwd_reference``, the
 plain version (a chunked prefix-product blend over padded tile segments,
 the counterpart of the JAX package's ``tile_xla.core_fwd_xla``).
+
+``core_bwd`` is the blend's VJP: from the forward totals and the per-pixel
+cotangents it returns one gradient row per instance, ``[I, 12]`` at sorted
+positions with the columns of ``ROW_COLUMNS``; rows of instances no pixel
+walked are zeros.  It is the port of ``render_pallas._bwd_kernel``: the
+kernel ``csrc/render_bwd.cu`` on CUDA tensors, ``core_bwd_reference`` (the
+counterpart of ``tile_xla.core_bwd_xla``) on CPU tensors.  Each instance
+belongs to one tile, so every row has one writer and no atomics are needed.
 
 The per-instance median-crossing statistics ``u_inst``/``npix_inst`` are a
 scatter of per-pixel ``(midx, ucross)``.  On the card that reduction is a
@@ -32,9 +41,15 @@ from ...config import RasterConfig
 from .. import blend
 
 FEAT = 11  # columns of the sorted feature table
-MAX_TILE_PX = 1024  # the kernel owns at most 4 pixels in each of 256 threads
+MAX_TILE_PX = 1024  # the kernels own at most 4 pixels in each of 256 threads
+# columns of the backward's gradient rows
+ROW_COLUMNS = ("x", "y", "A", "B", "C", "opacity", "r", "g", "b", "depth",
+               "depth_var", "depth_med")
+ROW = len(ROW_COLUMNS)
+TILE_BATCH = 64  # tiles the plain versions blend at once
 
-launches = {"render_fwd": 0, "segment_sum": 0}
+launches = {"render_fwd": 0, "segment_sum": 0, "render_bwd": 0,
+            "segment_sum_rows": 0}
 
 
 def reset_launches():
@@ -155,8 +170,8 @@ def scatter_sum(keys, vals, ivals, n: int):
 
 def core_fwd_reference(table, tile_start, tile_stop, gt_tiles, *,
                        cfg: RasterConfig, tiles_x: int, height: int,
-                       width: int, tile_batch: int = 64) -> CoreOutputs:
-    """Plain PyTorch render core: tiles in batches of ``tile_batch``, each
+                       width: int) -> CoreOutputs:
+    """Plain PyTorch render core: tiles in batches of ``TILE_BATCH``, each
     batch's segments padded and blended ``cfg.chunk`` instances at a time
     with :func:`blend.blend_chunk_fwd`; a batch stops once every in-image
     pixel has terminated."""
@@ -168,8 +183,8 @@ def core_fwd_reference(table, tile_start, tile_stop, gt_tiles, *,
                                             cfg.tile_w, height, width, dev)
     ar = torch.arange(g, device=dev)
     outs = []
-    for b0 in range(0, t_all, tile_batch):
-        sl = slice(b0, min(b0 + tile_batch, t_all))
+    for b0 in range(0, t_all, TILE_BATCH):
+        sl = slice(b0, min(b0 + TILE_BATCH, t_all))
         start = tile_start[sl].to(torch.int64)
         stop = tile_stop[sl].to(torch.int64)
         px, py, pixmask = px_all[sl], py_all[sl], mask_all[sl]
@@ -196,6 +211,44 @@ def core_fwd_reference(table, tile_start, tile_stop, gt_tiles, *,
         midx.reshape(-1), ucross.reshape(-1),
         torch.ones_like(midx).reshape(-1), n_inst)
     return CoreOutputs(*cat[:9], u_inst, npix_inst)
+
+
+def core_bwd_reference(table, tile_start, tile_stop, pix, *,
+                       cfg: RasterConfig, tiles_x: int, height: int,
+                       width: int, want_med: bool = True,
+                       want_var: bool = True):
+    """Plain PyTorch backward core: the forward's batching and chunking,
+    each chunk through :func:`blend.blend_chunk_bwd`; returns the gradient
+    rows [I, 12] (zeros where no pixel walked the instance).  ``pix`` is
+    :func:`blend.bwd_pixel_inputs` in tile-major layout [T, 10, Q]."""
+    dev = table.device
+    n_inst = table.shape[0]
+    t_all = tile_start.shape[0]
+    g = max(1, min(cfg.chunk, n_inst))
+    px_all, py_all, mask_all = pixel_coords(t_all, tiles_x, cfg.tile_h,
+                                            cfg.tile_w, height, width, dev)
+    ar = torch.arange(g, device=dev)
+    rows = torch.zeros((n_inst, ROW), dtype=table.dtype, device=dev)
+    for b0 in range(0, t_all, TILE_BATCH):
+        sl = slice(b0, min(b0 + TILE_BATCH, t_all))
+        start = tile_start[sl].to(torch.int64)
+        stop = tile_stop[sl].to(torch.int64)
+        px, py, pixmask = px_all[sl], py_all[sl], mask_all[sl]
+        carry = blend.init_bwd_carry(px.shape, table.dtype, dev)
+        maxcnt = int((stop - start).max()) if start.numel() else 0
+        for k0 in range(0, maxcnt, g):
+            if not bool(((carry.prod >= cfg.t_terminate) & pixmask).any()):
+                break
+            idx = start[:, None] + k0 + ar[None, :]              # [B, G]
+            inseg = idx < stop[:, None]
+            v = inseg[:, :, None] & pixmask[:, None, :]
+            f = table[idx.clamp(0, max(n_inst - 1, 0))]         # [B, G, 11]
+            carry, r = blend.blend_chunk_bwd(
+                carry, f[..., 0:2], f[..., 2:5], f[..., 5], f[..., 6:9],
+                f[..., 9], v, px, py, pix[sl], cfg, want_med=want_med,
+                want_var=want_var)
+            rows[idx[inseg]] = r[inseg]
+    return rows
 
 
 def _check_cuda(x, dtype, name):
@@ -264,3 +317,61 @@ def core_fwd(table, tile_start, tile_stop, gt_tiles, *, cfg: RasterConfig,
     return CoreOutputs(out_f[:, 0:3], out_f[:, 3], out_f[:, 4], out_f[:, 5],
                        out_f[:, 6], out_f[:, 7], out_i[:, 0], out_i[:, 1],
                        midx, u_inst, npix_inst)
+
+
+def launch_render_bwd(table, tile_start, tile_stop, pix, rows, *,
+                      cfg: RasterConfig, tiles_x: int, height: int,
+                      width: int, want_med: bool = True,
+                      want_var: bool = True):
+    """One launch of the ``render_bwd`` kernel into ``rows`` [I, 12], which
+    the caller zero-fills (inputs checked by :func:`core_bwd`)."""
+    from ._build import load
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = load("render_bwd").render_bwd(
+            table.data_ptr(), tile_start.data_ptr(), tile_stop.data_ptr(),
+            pix.data_ptr(), rows.data_ptr(), tile_start.shape[0], tiles_x,
+            cfg.tile_w, cfg.tile_h, width, height, cfg.alpha_cap,
+            cfg.alpha_min, cfg.t_terminate, int(want_med), int(want_var),
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"render_bwd launch failed: CUDA error {rc}")
+    launches["render_bwd"] += 1
+
+
+def core_bwd(table, tile_start, tile_stop, gt_tiles, totals, cots, *,
+             cfg: RasterConfig, tiles_x: int, height: int, width: int,
+             want_med: bool = True, want_var: bool = True):
+    """The backward core: gradient rows [I, 12] at sorted positions.
+
+    ``totals`` are the forward's (color [T, 3, Q], depth, weight, var,
+    t_final), ``cots`` the cotangents of (color, depth, weight, var,
+    median, t_final), all tile-major.  The ``render_bwd`` kernel on CUDA
+    tensors, :func:`core_bwd_reference` on CPU tensors."""
+    pix = blend.bwd_pixel_inputs(gt_tiles, *totals, *cots).contiguous()
+    kw = dict(cfg=cfg, tiles_x=tiles_x, height=height, width=width,
+              want_med=want_med, want_var=want_var)
+    if table.device.type == "cpu":
+        return core_bwd_reference(table, tile_start, tile_stop, pix, **kw)
+    _check_cuda(table, torch.float32, "table")
+    _check_cuda(tile_start, torch.int32, "tile_start")
+    _check_cuda(tile_stop, torch.int32, "tile_stop")
+    _check_cuda(pix, torch.float32, "pixel inputs")
+    n_tiles, q = tile_start.shape[0], cfg.tile_px
+    if table.dim() != 2 or table.shape[1] != FEAT:
+        raise ValueError(f"table must be [I, {FEAT}], "
+                         f"got {tuple(table.shape)}")
+    if tile_stop.shape != (n_tiles,) or pix.shape != (n_tiles,
+                                                      blend.PIX_ROWS, q):
+        raise ValueError("tile_stop must be [T] and the totals and "
+                         f"cotangents tile-major [T, (3,) {q}]")
+    if q > MAX_TILE_PX:
+        raise ValueError(f"the CUDA kernel takes tiles of at most "
+                         f"{MAX_TILE_PX} pixels, got {q}")
+    if not (table.device == tile_start.device == tile_stop.device
+            == pix.device):
+        raise ValueError("all inputs must be on one device")
+    rows = torch.zeros((table.shape[0], ROW), dtype=torch.float32,
+                       device=table.device)
+    launch_render_bwd(table, tile_start, tile_stop, pix, rows, **kw)
+    return rows

@@ -1,4 +1,4 @@
-"""The render op, forward (PyTorch port of the JAX package's
+"""The render op, forward and backward (PyTorch port of the JAX package's
 ``ops/rasterize.py``).
 
 Pipeline::
@@ -11,9 +11,15 @@ Pipeline::
   -> image assembly   background composite, tile -> image layout, and the
                       deterministic per-Gaussian uncertainty sums
 
-The render core's backward is not ported yet: a gradient request through
-the core raises ``NotImplementedError`` instead of returning wrong
-gradients.  ``track_off``/``map_off`` detach the view matrix or the Gaussian
+The render core's backward is analytic: the backward blend writes one
+gradient row per instance and ``segment_sum_rows`` reduces them, in order,
+onto the Gaussians (both CUDA kernels on the card, their plain versions on
+the CPU); no float atomics, so gradients are bit-reproducible.  Every other
+gradient (conic -> covariance -> scale/rotation/mean, the screen position
+-> mean and view matrix, SH -> color) is autograd through ``preprocess``.
+Median depth and the variance's direct term read the pose-stopped depth
+copy (column 10 of the feature table), so they move the means but never
+the pose.  ``track_off``/``map_off`` detach the view matrix or the Gaussian
 parameters, as the JAX version stops their gradients.
 """
 
@@ -24,35 +30,65 @@ import torch
 from ..camera import Camera
 from ..config import RasterConfig
 from .binning import bin_gaussians, default_max_instances
-from .kernels.render import CoreOutputs, core_fwd, scatter_sum
+from .kernels.render import CoreOutputs, core_bwd, core_fwd, scatter_sum
+from .kernels.segment_sum import segment_sum_rows
 from .oracle import RenderOutputs
 from .projection import preprocess
 from .tiling import grid_dims, img_to_tiles, tiles_to_img
 
-BACKWARD_MISSING = (
-    "the render core's backward is not ported yet: it comes with the "
-    "backward slice of the port (the counterparts of the TPU kernels "
-    "render_pallas._bwd_kernel and segment_sum._kernel)")
-
 
 class _RenderCore(torch.autograd.Function):
-    """Sorted-order row gather + forward blend over the per-Gaussian feature
-    table ``feat`` [P, 11] (xy, conic, opacity, color, depth,
-    depth_sgview)."""
+    """Sorted-order row gather + blend over the per-Gaussian feature table
+    ``feat`` [P, 11] (xy, conic, opacity, color, depth, depth_sgview).
+
+    The backward returns d ``feat`` itself, from the backward core's rows
+    reduced per Gaussian over its pre-sort run (``inv``, ``gauss_start``,
+    ``gauss_stop`` of the binning); autograd's own backward of the gather
+    (a scatter with atomics on the card) is never used.  An output the loss
+    never touches arrives as ``None``: the median and variance streams are
+    then skipped (``want_med``/``want_var``), and any other is a zero.
+    """
 
     @staticmethod
     def forward(ctx, feat, gauss_sorted, tile_start, tile_stop, gt_tiles,
-                cfg, tiles_x, height, width):
+                inv, gauss_start, gauss_stop, cfg, tiles_x, height, width):
         table = feat[gauss_sorted].contiguous()            # [cap, 11]
         out = core_fwd(table, tile_start, tile_stop, gt_tiles, cfg=cfg,
                        tiles_x=tiles_x, height=height, width=width)
         ctx.mark_non_differentiable(out.n_contrib, out.n_valid, out.midx,
                                     out.npix_inst)
+        ctx.set_materialize_grads(False)
+        # out.var is the true variance, before any ref_depth_var zeroing
+        ctx.save_for_backward(table, tile_start, tile_stop, gt_tiles,
+                              out.color, out.depth, out.weight, out.var,
+                              out.t_final, inv, gauss_start, gauss_stop)
+        ctx.geometry = (cfg, tiles_x, height, width)
         return tuple(out)
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(BACKWARD_MISSING)
+    def backward(ctx, d_color, d_depth, d_weight, d_median, d_var, d_tfinal,
+                 *_unused):
+        (table, tile_start, tile_stop, gt_tiles, color, depth, weight, var,
+         t_final, inv, gauss_start, gauss_stop) = ctx.saved_tensors
+        cfg, tiles_x, height, width = ctx.geometry
+        cots = (d_color, d_depth, d_weight, d_var, d_median, d_tfinal)
+        nones = (None,) * 11
+        if all(c is None for c in cots):
+            return (None,) + nones
+        zero = lambda c, like: torch.zeros_like(like) if c is None \
+            else c.contiguous()
+        rows = core_bwd(
+            table, tile_start, tile_stop, gt_tiles,
+            (color, depth, weight, var, t_final),
+            (zero(d_color, color), zero(d_depth, depth),
+             zero(d_weight, weight), zero(d_var, var),
+             zero(d_median, depth), zero(d_tfinal, t_final)),
+            cfg=cfg, tiles_x=tiles_x, height=height, width=width,
+            want_med=d_median is not None, want_var=d_var is not None)
+        g = segment_sum_rows(rows, inv, gauss_start, gauss_stop)  # [P, 12]
+        # the median and variance rows both belong to depth_sgview
+        d_feat = torch.cat([g[:, :10], (g[:, 10] + g[:, 11])[:, None]], 1)
+        return (d_feat,) + nones
 
 
 def count_instances(means3D, camera: Camera, cfg: RasterConfig = None, *,
@@ -96,10 +132,11 @@ def rasterize(means3D, camera: Camera, cfg: RasterConfig = None, *,
               scale_modifier: float = 1.0, bg=None, gt_depth=None,
               means2D=None, track_off: bool = False, map_off: bool = False,
               max_instances=None) -> RenderOutputs:
-    """Render Gaussians (forward).
+    """Render Gaussians; differentiable w.r.t. every Gaussian parameter,
+    ``means2D`` and the view matrix.
 
-    Runs where the tensors are: the render core launches the CUDA kernel on
-    CUDA tensors and the plain version on CPU tensors.  ``max_instances``
+    Runs where the tensors are: the render core launches the CUDA kernels
+    on CUDA tensors and the plain versions on CPU tensors.  ``max_instances``
     defaults to ``cfg.max_instances`` or ``P * cfg.instance_multiplier``;
     when the true count exceeds it, ``overflow`` is set (see
     ``ops.binning`` for what is dropped).
@@ -138,8 +175,8 @@ def rasterize(means3D, camera: Camera, cfg: RasterConfig = None, *,
         scale_modifier=scale_modifier, means2D=means2D)
     tiles_x, _ = grid_dims(h, w, cfg.tile_h, cfg.tile_w)
     out = CoreOutputs(*_RenderCore.apply(
-        feat, binn.gauss_id, binn.tile_start, binn.tile_stop, gt_tiles, cfg,
-        tiles_x, h, w))
+        feat, binn.gauss_id, binn.tile_start, binn.tile_stop, gt_tiles,
+        binn.inv, binn.gauss_start, binn.gauss_stop, cfg, tiles_x, h, w))
 
     color_tiles = out.color + out.t_final[:, None, :] * bg[None, :, None]
     color_img = tiles_to_img(color_tiles.movedim(1, 0), h, w, cfg.tile_h,

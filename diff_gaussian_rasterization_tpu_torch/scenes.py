@@ -6,6 +6,10 @@ in the same order and with the same distributions as the JAX package's
 P Gaussians in a 4 x 4 x 5.2 box in front of an identity camera at
 1200x680, tan(fov/2) = 0.82 x 0.47.  ``random_model`` makes a
 ``GaussianModel`` of the same Gaussians with random SH bands.
+``mapping_model`` is the model of the JAX package's mapping benchmark
+(``bench_tracking.make_model``, 500,000 Gaussians in ``bench_mapping.py``),
+and ``small_scene`` the JAX package's test scene (``tests/scenes.py``),
+each with the same draws in the same order.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from .models.gaussians import GaussianModel
 from .ops.sh import num_sh_coeffs, rgb_to_sh0
 
 BENCH_P, BENCH_H, BENCH_W = 100_000, 680, 1200
+MAPPING_P = 500_000
 BENCH_TANFOVX, BENCH_TANFOVY = 0.82, 0.47
 
 
@@ -82,3 +87,53 @@ def orbit_view(angle_deg: float, device="cuda"):
     v[:3, :3] = rot
     v[3, :3] = center - center @ rot
     return v
+
+
+def mapping_model(seed=0, p=MAPPING_P, device="cuda") -> GaussianModel:
+    """The mapping benchmark's model: the bench scene's box, SH degree 0
+    colors in [0.1, 0.9], log-uniform scales in [0.01, 0.05], opacities
+    uniform in [0.2, 0.95] (drawn in ``bench_tracking.make_model``'s
+    order, in float64, then cast)."""
+    rng = np.random.RandomState(seed)
+    means = rng.uniform(-2, 2, (p, 3))
+    means[:, 2] = rng.uniform(0.8, 6.0, p)
+    quats = rng.normal(size=(p, 4))
+    quats /= np.linalg.norm(quats, axis=1, keepdims=True)
+    sh = rng.uniform(0.1, 0.9, (p, 1, 3)) / 0.28209479177387814
+    scales_log = rng.uniform(np.log(0.01), np.log(0.05), (p, 3))
+    opac_logit = np.log(
+        1.0 / np.clip(rng.uniform(0.2, 0.95, (p, 1)), 1e-5, 1) - 1.0) * -1.0
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    return GaussianModel(t(means), t(scales_log), t(quats), t(opac_logit),
+                         t(sh), torch.ones(p, dtype=torch.bool, device=device))
+
+
+def small_scene(p=64, h=32, w=40, seed=0, sh_degree=None, device="cuda"):
+    """``(means3D, kwargs, camera)`` of the JAX package's test scene
+    (``tests/scenes.py::make_scene``): P Gaussians in front of an identity
+    camera with tan(fov/2) = tan(0.5) x tan(0.4), deliberately unnormalized
+    quaternions; ``kwargs`` holds scales, rotations, opacities, bg,
+    gt_depth and colors_precomp, or shs and sh_degree."""
+    rng = np.random.RandomState(seed)
+    means = rng.uniform(-1.0, 1.0, (p, 3))
+    means[:, 2] = rng.uniform(1.0, 4.0, p)
+    scales = rng.uniform(0.05, 0.25, (p, 3))
+    quats = rng.normal(size=(p, 4))
+    quats /= np.linalg.norm(quats, axis=1, keepdims=True)
+    quats *= rng.uniform(0.7, 1.3, (p, 1))
+    opac = rng.uniform(0.2, 0.95, (p, 1))
+    colors = rng.uniform(0.0, 1.0, (p, 3))
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    cam = Camera(viewmatrix=torch.eye(4, dtype=torch.float32, device=device),
+                 tanfovx=float(np.tan(0.5)), tanfovy=float(np.tan(0.4)),
+                 height=h, width=w)
+    kw = dict(scales=t(scales), rotations=t(quats), opacities=t(opac),
+              colors_precomp=t(colors), bg=t(rng.uniform(0, 1, 3)),
+              gt_depth=t(rng.uniform(1.0, 4.0, (h, w))))
+    if sh_degree is not None:
+        sh = rng.normal(scale=0.3, size=(p, num_sh_coeffs(sh_degree), 3))
+        sh = t(sh)
+        sh[:, 0] = rgb_to_sh0(t(colors))
+        kw["shs"], kw["sh_degree"] = sh, sh_degree
+        del kw["colors_precomp"]
+    return t(means), kw, cam

@@ -7,11 +7,14 @@ not installed::
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances are those of the kernel comparisons in
-``test_pallas_kernels.py``: float fields rtol 1e-4 / atol 2e-5 on the
-pixels whose integer fields agree, integer fields a mismatch fraction below
-5e-3 (the kernel's sequential ``T *= 1 - alpha`` rounds differently from
-the plain version's chunked cumprod, so pixels exactly on the t_terminate
-or 0.5 thresholds may flip).
+``test_pallas_kernels.py``: forward float fields rtol 1e-4 / atol 2e-5 on
+the pixels whose integer fields agree, integer fields a mismatch fraction
+below 5e-3 (the kernel's sequential ``T *= 1 - alpha`` rounds differently
+from the plain version's chunked cumprod, so pixels exactly on the
+t_terminate or 0.5 thresholds may flip); backward rows rtol 1e-3 /
+atol 2e-4 on the tiles whose ``n_contrib`` agrees on every pixel; card
+gradients against the CPU path's at ``test_rasterize.py``'s gradient
+tolerance, rtol 5e-4 / atol 2e-5.
 """
 
 import pytest
@@ -20,8 +23,10 @@ import torch
 from diff_gaussian_rasterization_tpu_torch.config import RasterConfig
 from diff_gaussian_rasterization_tpu_torch.ops import rasterize as ras
 from diff_gaussian_rasterization_tpu_torch.ops.kernels import render
+from diff_gaussian_rasterization_tpu_torch.ops.kernels.segment_sum import (
+    segment_sum_rows, segment_sum_rows_reference)
 from diff_gaussian_rasterization_tpu_torch.scenes import (
-    bench_camera, bench_scene)
+    bench_camera, bench_scene, small_scene)
 
 torch.set_num_threads(2)
 
@@ -122,3 +127,104 @@ def test_rasterize_card_matches_cpu(dev):
         else:
             assert float((x != y).float().mean()) < 5e-3, f
         assert torch.equal(getattr(b, f), getattr(c, f)), f
+
+
+def bwd_inputs(tile, device, seed=0):
+    """The forward on ``device`` (the kernel on the card) and random
+    cotangents from a seeded generator."""
+    args, ckw = core_inputs(tile, device=device)
+    fwd = render.core_fwd(*args, **ckw)
+    t, q = fwd.depth.shape
+    g = torch.Generator().manual_seed(seed)
+    cots = tuple(torch.randn(s, generator=g).to(device) for s in
+                 [(t, 3, q), (t, q), (t, q), (t, q), (t, q), (t, q)])
+    totals = (fwd.color, fwd.depth, fwd.weight, fwd.var, fwd.t_final)
+    return args, ckw, fwd, totals, cots
+
+
+@pytest.mark.parametrize("tile", [(8, 16), (16, 16), (32, 32)])
+@pytest.mark.parametrize("want", [(True, True), (False, False)])
+def test_render_bwd_matches_plain(dev, tile, want):
+    args, ckw, fwd, totals, cots = bwd_inputs(tile, dev)
+    table, start, stop, gt = args
+    kw = dict(ckw, want_med=want[0], want_var=want[1])
+    before = render.launches["render_bwd"]
+    k = render.core_bwd(table, start, stop, gt, totals, cots, **kw)
+    torch.cuda.synchronize()
+    assert render.launches["render_bwd"] == before + 1
+    pix = render.blend.bwd_pixel_inputs(gt, *totals, *cots).contiguous()
+    p = render.core_bwd_reference(table, start, stop, pix, **kw)
+    plain_fwd = render.core_fwd_reference(*args, **ckw)
+    tile_ok = (fwd.n_contrib == plain_fwd.n_contrib).all(dim=1)
+    seg = (stop - start).to(torch.int64)
+    inst_ok = torch.repeat_interleave(tile_ok, seg)
+    first = int(start[0])
+    rows_k = k[first:first + inst_ok.shape[0]][inst_ok]
+    rows_p = p[first:first + inst_ok.shape[0]][inst_ok]
+    torch.testing.assert_close(rows_k, rows_p, rtol=1e-3, atol=2e-4)
+    assert float((~tile_ok).float().mean()) < 0.05
+    if not want[0]:
+        assert float(k[:, 11].abs().max()) == 0.0
+    again = render.core_bwd(table, start, stop, gt, totals, cots, **kw)
+    assert torch.equal(k, again)
+
+
+def test_segment_sum_rows_matches_plain(dev):
+    """The kernel adds each run in order: bit-equal to index_add_ on the
+    CPU, which adds in the same order."""
+    g = torch.Generator().manual_seed(0)
+    p, cap = 5000, 20000
+    lengths = torch.randint(0, 8, (p,), generator=g)
+    ends = torch.cumsum(lengths, 0).clamp_max(cap)
+    start = (ends - lengths).clamp(0, cap).to(torch.int32)
+    stop = ends.to(torch.int32)
+    rows = torch.randn(cap, 12, generator=g)
+    inv = torch.randperm(cap, generator=g).to(torch.int32)
+    before = render.launches["segment_sum_rows"]
+    a = segment_sum_rows(*(x.to(dev) for x in (rows, inv, start, stop)))
+    torch.cuda.synchronize()
+    assert render.launches["segment_sum_rows"] == before + 1
+    b = segment_sum_rows_reference(rows, inv, start, stop)
+    assert torch.equal(a.cpu(), b)
+
+
+def scene_grads(device, seed=13):
+    """Gradients of every output through rasterize on ``device`` (the
+    scene made on the CPU and moved)."""
+    means, kw, cam = small_scene(p=200, h=40, w=56, seed=seed, sh_degree=1,
+                                 device="cpu")
+    cfg = RasterConfig(tile_h=8, tile_w=8, chunk=16, ref_depth_var=False)
+    leaves = {"means3D": means, **{k: kw[k] for k in
+              ("scales", "rotations", "opacities", "shs")}}
+    leaves = {k: v.to(device).requires_grad_(True) for k, v in leaves.items()}
+    view = cam.viewmatrix.to(device).requires_grad_(True)
+    rest = {k: (v.to(device) if torch.is_tensor(v) else v)
+            for k, v in kw.items() if k not in leaves}
+    out = ras.rasterize(leaves["means3D"], cam.replace(viewmatrix=view), cfg,
+                        **{k: v for k, v in leaves.items() if k != "means3D"},
+                        **rest)
+    loss = (out.color.sum() + 0.3 * out.depth.sum()
+            + 0.2 * out.opacity_map.sum() + 0.15 * out.depth_median.sum()
+            + 0.1 * out.depth_var.sum())
+    loss.backward()
+    return {**{k: v.grad for k, v in leaves.items()}, "view": view.grad}
+
+
+def test_rasterize_grads_card_match_cpu(dev):
+    a = scene_grads("cpu")
+    b = scene_grads(dev)
+    for k in a:
+        torch.testing.assert_close(b[k].cpu(), a[k], rtol=5e-4, atol=2e-5,
+                                   msg=k)
+        assert bool(torch.isfinite(b[k]).all())
+
+
+def test_backward_bit_reproducible(dev):
+    before = dict(render.launches)
+    a = scene_grads(dev)
+    b = scene_grads(dev)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+    assert render.launches["render_bwd"] == before["render_bwd"] + 2
+    assert render.launches["segment_sum_rows"] == \
+        before["segment_sum_rows"] + 2

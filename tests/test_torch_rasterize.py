@@ -6,7 +6,8 @@ Same scene arrays through ``diff_gaussian_rasterization_tpu``'s
 core runs its plain version on CPU tensors), compared at the tolerances of
 ``test_rasterize.assert_outputs_close``.  Also: a model carried across by
 ``convert.py``, a PLY round trip, the bench scene's instance count, and the
-loud failure of a gradient request (the backward is not ported yet).
+loud failure of ``splat_basis_power`` (not ported).  The gradients are
+held against the JAX package's in ``test_torch_grad.py``.
 """
 
 import dataclasses
@@ -199,14 +200,17 @@ def test_ply_round_trip(tmp_path):
         load_ply(path, capacity=n - 1, device="cpu")
 
 
-def test_gradient_request_raises():
+def test_splat_basis_power_raises():
+    """``splat_basis_power=True`` raises; the default config renders and
+    back-propagates to the means."""
     scene, cam = make_scene(p=32, h=16, w=24, seed=5)
     tkw = to_torch({k: v for k, v in scene.items() if k != "means3D"})
     means = torch.as_tensor(np.array(scene["means3D"])).requires_grad_(True)
     out = rasterize(means, port_camera(cam), port_config(CFG), **tkw)
     assert out.color.requires_grad
-    with pytest.raises(NotImplementedError, match="backward"):
-        out.color.sum().backward()
+    out.color.sum().backward()
+    assert means.grad is not None and bool(torch.isfinite(means.grad).all())
+    assert float(means.grad.abs().max()) > 0
     with pytest.raises(NotImplementedError, match="splat_basis_power"):
         rasterize(means, port_camera(cam),
                   port_config(CFG.replace(splat_basis_power=True)), **tkw)
