@@ -5,17 +5,22 @@
 
 Drives the port (``diff_gaussian_rasterization_tpu_torch``), never JAX, at
 the scale the repository measures: 100,000 Gaussians at 1200x680 with 32x32
-tiles for rendering and its gradient, and the mapping benchmark's 500,000
-Gaussians (``bench_mapping.py`` of the JAX package) for mapping steps.
-Phases:
+tiles for rendering and its gradient, the mapping benchmark's 500,000
+Gaussians (``bench_mapping.py`` of the JAX package) for mapping steps, and
+the tracking benchmark's frame (``bench_tracking.py``: 100,000 Gaussians,
+1200x680, its record configuration) for tracking.  Phases:
 
 1. build every CUDA kernel from ``ops/kernels/csrc`` (one nvcc per source,
    all started together) and print the compiler's register report;
 2. hold each kernel against its plain PyTorch version on the card, at the
-   shapes of the main path, and print the largest errors: on the 100k
-   bench scene here, and (in phase 3, before the mapping steps) on the
-   first mapping step's render at 500k, the gradient rows also against
-   the plain version in float64;
+   shapes of the main paths, and print the largest errors: on the 100k
+   bench scene; ``render_jvp`` (light and full) on the tracking frame's
+   full-resolution dual render (identity pose, the record configuration's
+   frozen margin-2 binning, the 6 twist tangents), its primal bit-equal to
+   ``render_fwd``'s and its tangents also against the plain version in
+   float64; and (in phase 3, before the mapping steps) on the first
+   mapping step's render at 500k, the gradient rows also against the plain
+   version in float64;
 3. drive the main paths through the entry points a user calls, each with
    every launch counter set to 0 just before and read just after: the
    forward (``rasterize`` with precomputed colors, ``render_model`` on an
@@ -26,12 +31,18 @@ Phases:
    ``segment_sum_rows`` launch per step, finite gradients for every leaf
    and the view matrix, bit-equal repeat backwards, the card's gradients
    against the port's dense ``render_oracle`` and against the CPU path in
-   float64 on small scenes); and five ``map_step``s at 500k, whose loss
-   must fall;
+   float64 on small scenes); five ``map_step``s at 500k, whose loss must
+   fall; and ``track_frame`` at the record configuration, light and full
+   variant (5 ``render_jvp`` and no ``render_fwd`` launch per tracked
+   frame, no overflow in either level's frozen binning, pose error after
+   below 1e-3, bit-equal repeats), the dual render's primal bit-equal to
+   ``rasterize``'s, the reused binning against a fresh one, and the card's
+   tracking costs against the CPU path's on a small scene;
 4. time each kernel, its plain version, its bound and the one PyTorch call
-   that computes the same function, the whole forward, forward + backward
-   and a mapping step, with CUDA events, and list the device time of the
-   forward and of forward + backward by kernel with torch.profiler.
+   that computes the same function, the whole forward, forward + backward,
+   a mapping step, a dual render and a tracked frame, with CUDA events,
+   and list the device time of the forward, of forward + backward and of
+   a tracked frame by kernel with torch.profiler.
 
 Prints the card's name and power limit, a ``kernels`` JSON line, and last
 the line ``{"ok": true, "device": {...}}``.  Exits non-zero, without that
@@ -67,6 +78,17 @@ OPS_PER_CONTRIB = 20
 # d_alpha with one reciprocal counted as 8 (~13), e, and the twelve
 # per-instance terms (~29): ~58.
 OPS_PER_CONTRIB_BWD = 58
+# The dual forward adds, per contribution: the shared rate (a division
+# counted as 8, a compare, a subtraction) and gx, gy (6), ~16; and per
+# tangent dpow (4), dw (3), the running S (2), dcolor (6), ddepth (4) and
+# dweight (1), ~20, or ~29 with the full variant's conic terms.
+OPS_PER_CONTRIB_JVP = 16
+OPS_PER_TANGENT = {3: 20, 6: 29}
+# Tangent streams against the plain version: rtol and atol (plus COL_EPS
+# times the stream's largest value, below).
+JVP_RTOL, JVP_ATOL = 2e-4, 2e-5
+# The small tracking scene of the card-vs-CPU comparison.
+SMALL_TRACK = dict(p=60_000, height=96, width=160)
 # Loss weights of test_rasterize._loss (every differentiable output).
 LOSS_W = dict(depth=0.3, opacity_map=0.2, depth_median=0.15, depth_var=0.1)
 
@@ -161,6 +183,23 @@ def render_bwd_bound_ms(pairs, contribs, n_inst, n_tiles, q):
     ops = pairs * OPS_PER_PAIR + contribs * OPS_PER_CONTRIB_BWD
     nbytes = (n_inst * 11 * 4 + n_tiles * 2 * 4 + n_tiles * q * 10 * 4
               + n_inst * 12 * 4)
+    ms_ops, ms_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    info = dict(ops=ops, bytes=nbytes)
+    if ms_ops >= ms_bytes:
+        return ms_ops, "operations", info
+    return ms_bytes, "bytes", info
+
+
+def render_jvp_bound_ms(pairs, contribs, n_inst, n_tiles, q, k_t, per_k):
+    """The dual forward's least time: the forward's pairs and contributions
+    plus the tangents' operations per contribution, over the FP32 peak; the
+    bytes (the feature and tangent rows of the instances in segments, the
+    ranges, the ground truth, the forward's 12 rows and K x 6 tangent rows
+    per pixel), over HBM."""
+    ops = pairs * OPS_PER_PAIR + contribs * (
+        OPS_PER_CONTRIB + OPS_PER_CONTRIB_JVP + k_t * OPS_PER_TANGENT[per_k])
+    nbytes = (n_inst * (11 + per_k * k_t) * 4 + n_tiles * 2 * 4
+              + n_tiles * q * 4 + n_tiles * q * (12 + 6 * k_t) * 4)
     ms_ops, ms_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
     info = dict(ops=ops, bytes=nbytes)
     if ms_ops >= ms_bytes:
@@ -359,6 +398,314 @@ def profile_breakdown(fn, n=3, top=12):
     return wall_ms / n, busy_ms / n, lines
 
 
+def compare_tangents(tk, tp, td, tile_ok, tile_ok_d):
+    """Kernel vs plain tangent streams (each output's tangent along one
+    direction) on the tiles whose ``n_contrib`` agrees on every pixel, at
+    rtol JVP_RTOL and atol JVP_ATOL + COL_EPS x the stream's largest value;
+    and both against the plain version in float64 (``td``, on
+    ``tile_ok_d``): the kernel's largest error at most F64_RATIO x the
+    plain float32 version's, or F64_FLOOR of the stream's largest value.
+    Returns (max_abs_err, per-stream report, ok, ok of the float64
+    check)."""
+    rep, ok, ok_f64, worst = {}, True, True, 0.0
+    for name in ("color", "depth", "weight", "t_final"):
+        a, b, d = getattr(tk, name), getattr(tp, name), getattr(td, name)
+        for k in range(a.shape[1]):
+            x, y = a[:, k][tile_ok], b[:, k][tile_ok]
+            scale = float(y.abs().max())
+            err = float((x - y).abs().max())
+            ok &= bool(((x - y).abs() <= JVP_ATOL + COL_EPS * scale
+                        + JVP_RTOL * y.abs()).all())
+            worst = max(worst, err)
+            dd = d[:, k][tile_ok_d]
+            s64 = max(float(dd.abs().max()), 1e-30)
+            kd = float((a[:, k][tile_ok_d].double() - dd).abs().max()) / s64
+            pd = float((b[:, k][tile_ok_d].double() - dd).abs().max()) / s64
+            ok_f64 &= kd <= max(F64_RATIO * pd, F64_FLOOR)
+            rep[f"{name}[{k}]"] = dict(max_abs=scale, err=err,
+                                       kernel_vs_f64=kd, plain_vs_f64=pd)
+    return worst, rep, ok, ok_f64
+
+
+def check_jvp_kernel(tag, table, tans, binn, gt_tiles, core_kw, full,
+                     check):
+    """``render_jvp`` against its plain version (and the plain version in
+    float64) on one dual render's sorted tables, and its primal against
+    ``render_fwd`` on the same table.  Returns the largest error and the
+    kernel's outputs."""
+    import torch
+    from diff_gaussian_rasterization_tpu_torch.ops.kernels import render
+    start, stop = binn.tile_start, binn.tile_stop
+    kw = dict(core_kw, full=full)
+    out_k, tan_k = render.core_fwd_jvp(table, tans, start, stop, gt_tiles,
+                                       **kw)
+    fwd = render.core_fwd(table, start, stop, gt_tiles, **core_kw)
+    out_p, tan_p = render.core_fwd_jvp_reference(table, tans, start, stop,
+                                                 gt_tiles, **kw)
+    out_d, tan_d = render.core_fwd_jvp_reference(
+        table.double(), tans.double(), start, stop, gt_tiles.double(), **kw)
+    torch.cuda.synchronize()
+    check(all(torch.equal(getattr(out_k, f), getattr(fwd, f))
+              for f in out_k._fields),
+          f"{tag}: render_jvp's primal outputs are bit-equal to render_fwd's")
+    err_p, rep, ok = compare_core(out_k, out_p)
+    log(f"[kernel] {tag}: render_jvp primal vs plain: " + json.dumps(rep))
+    check(ok, f"{tag}: render_jvp's primal matches its plain version (rtol "
+              "1e-4, atol 2e-5 on agreeing pixels; integer mismatch < 5e-3)")
+    tile_ok = (out_k.n_contrib == out_p.n_contrib).all(dim=1)
+    # float64 also has to pick the same contributors (n_valid): a pair on
+    # the alpha_min threshold moves a tangent by a whole term
+    tile_ok_d = tile_ok & ((out_k.n_contrib == out_d.n_contrib)
+                           & (out_k.n_valid == out_d.n_valid)).all(dim=1)
+    left_out = float((~tile_ok).float().mean())
+    err_t, trep, ok_t, ok_f64 = compare_tangents(tan_k, tan_p, tan_d,
+                                                 tile_ok, tile_ok_d)
+    del out_d, tan_d
+    log(f"[kernel] {tag}: render_jvp tangents vs plain: max_abs_err {err_t} "
+        f"on the tiles whose n_contrib agrees; tiles left out {left_out}")
+    log(f"[kernel] {tag}: render_jvp per stream: largest |value|, error vs "
+        "plain, and the largest error of the kernel and of the plain "
+        "version against the plain version in float64, over that value: "
+        + json.dumps(trep))
+    check(ok_t, f"{tag}: render_jvp's tangents match the plain version "
+                f"(rtol {JVP_RTOL}, atol {JVP_ATOL} + {COL_EPS} x the "
+                "stream's largest value)")
+    check(ok_f64, f"{tag}: render_jvp's tangent error against float64 is "
+                  f"within {F64_RATIO} x the plain version's, or "
+                  f"{F64_FLOOR} of the stream's largest value")
+    check(left_out < 5e-3, f"{tag}: tiles whose n_contrib disagrees < 5e-3")
+    check(float(tan_k.median.abs().max()) == 0.0
+          and float(tan_k.color.abs().max()) > 0,
+          f"{tag}: median tangent zero, color tangents non-zero")
+    return dict(out_k=out_k, err=max(err_p, err_t))
+
+
+def twist_basis(view):
+    """[6, 4, 4]: the view matrix's derivatives along the twist basis."""
+    import torch
+    from diff_gaussian_rasterization_tpu_torch.models.lie import apply_twist
+    tw = torch.func.jacfwd(lambda x: apply_twist(view, x))(
+        torch.zeros(6, dtype=view.dtype, device=view.device))
+    return tw.movedim(-1, 0)
+
+
+def tracking_kernels(dev, check):
+    """Phase 2 for the tracking path: ``render_jvp`` (light and full)
+    against its plain version on the full-resolution dual render of the
+    tracking frame, at the identity pose with the record configuration's
+    frozen binning and the 6 twist tangents."""
+    import torch
+    from diff_gaussian_rasterization_tpu_torch.models.slam import (
+        frozen_budget)
+    from diff_gaussian_rasterization_tpu_torch.ops import rasterize as ras
+    from diff_gaussian_rasterization_tpu_torch.scenes import tracking_frame
+    ts = tracking_frame(device=dev)
+    means = ts.model.means3D.detach()
+    with torch.no_grad():
+        kwm = ts.model.raster_kwargs()
+    margin = ts.tcfg.bin_margin_px
+    binn = ras.bin_for_view(
+        means, ts.camera, ts.cfg.replace(bin_margin_px=margin),
+        max_instances=frozen_budget(ts.cfg, means.shape[0], margin), **kwm)
+    tw = twist_basis(ts.camera.viewmatrix)
+    core_kw = dict(cfg=ts.cfg, tiles_x=-(-ts.camera.width // ts.cfg.tile_w),
+                   height=ts.camera.height, width=ts.camera.width)
+    log(f"[track] tracking frame: {int(ts.frame.depth.gt(0).sum())} pixels "
+        f"with depth, budget {ts.cfg.max_instances}, frozen binning "
+        f"{int(binn.num_rendered)} instances (budget "
+        f"{binn.gauss_id.shape[0]}, overflow {bool(binn.overflow)})")
+    variants = {}
+    for variant, vcfg in (("light", ts.cfg), ("full", ts.cfg.full_variant())):
+        with torch.no_grad():
+            _, _, table, tans, gt_tiles = ras.pose_jvp_tables(
+                means, ts.camera, vcfg, tw, None, ts.frame.depth, binn=binn,
+                **kwm)
+        res = check_jvp_kernel(f"tracking {variant}", table, tans, binn,
+                               gt_tiles, core_kw, variant == "full", check)
+        variants[variant] = dict(res, cfg=vcfg, table=table, tans=tans,
+                                 gt_tiles=gt_tiles)
+    return dict(ts=ts, means=means, kwm=kwm, binn=binn, tw=tw,
+                core_kw=core_kw, variants=variants)
+
+
+def tracking_path(st, dev, check):
+    """Phase 3 for the tracking path: ``track_frame`` at the record
+    configuration, light and full, with the launch counts of one tracked
+    frame, the frozen binnings, the pose error and a bit-equal repeat; the
+    dual render's primal against ``rasterize`` at the same binning; the
+    reused binning against a fresh one at the binning pose; and the card
+    against the CPU path on a small scene."""
+    import torch
+    from diff_gaussian_rasterization_tpu_torch.models.slam import (
+        Frame, track_frame)
+    from diff_gaussian_rasterization_tpu_torch.ops import rasterize as ras
+    from diff_gaussian_rasterization_tpu_torch.ops.kernels import render
+    from diff_gaussian_rasterization_tpu_torch.scenes import (
+        mapping_model, tracking_frame)
+    ts, means, kwm, binn = st["ts"], st["means"], st["kwm"], st["binn"]
+    eye = ts.camera.viewmatrix
+    err_before = float((ts.view0 - eye).abs().max())
+    n_dual = ts.tcfg.coarse_iters + ts.tcfg.iters
+    want = dict(render_fwd=0, segment_sum=2 * n_dual, render_bwd=0,
+                segment_sum_rows=0, render_jvp=n_dual)
+    st["counts"], st["pose_err"] = {}, {}
+    for variant in ("light", "full"):
+        vcfg = st["variants"][variant]["cfg"]
+        binns = []
+        render.reset_launches()
+        v1, c1, cs1 = track_frame(ts.model, ts.view0, ts.frame, vcfg,
+                                  ts.tcfg, ts.camera, binnings=binns)
+        torch.cuda.synchronize()
+        counts = dict(render.launches)
+        v2, _, _ = track_frame(ts.model, ts.view0, ts.frame, vcfg, ts.tcfg,
+                               ts.camera)
+        err_after = float((v1 - eye).abs().max())
+        st["counts"][variant] = counts
+        st["pose_err"][variant] = (err_before, err_after)
+        log(f"[track] {variant}: one tracked frame, launches {counts}; "
+            f"costs {cs1.tolist()}, best {float(c1)}; pose_err_before "
+            f"{err_before}, pose_err_after {err_after}; frozen binnings "
+            f"{[int(b.num_rendered) for b in binns]} instances, overflow "
+            f"{[bool(b.overflow) for b in binns]}")
+        check(counts == want, f"track {variant}: launches per tracked frame "
+                              f"{want}")
+        check(len(binns) == ts.tcfg.pyramid
+              and not any(bool(b.overflow) for b in binns),
+              f"track {variant}: no overflow in either level's frozen "
+              "binning")
+        check(err_after < 1e-3, f"track {variant}: pose_err_after < 1e-3")
+        check(torch.equal(v1, v2), f"track {variant}: two tracked frames "
+                                   "give bit-equal views")
+
+    with torch.no_grad():
+        j = ras.rasterize_with_pose_jvp(means, ts.camera, ts.cfg, st["tw"],
+                                        gt_depth=ts.frame.depth, binn=binn,
+                                        **kwm)
+        reused = ras.rasterize(means, ts.camera, ts.cfg,
+                               gt_depth=ts.frame.depth, binn=binn, **kwm)
+        fresh = ras.rasterize(means, ts.camera, ts.cfg,
+                              gt_depth=ts.frame.depth, **kwm)
+    torch.cuda.synchronize()
+    check(all(torch.equal(getattr(j.out, f), getattr(reused, f))
+              for f in reused._fields),
+          "rasterize_with_pose_jvp's primal is bit-equal to rasterize at the "
+          "same pose and binning")
+    fields = ("color", "depth", "opacity_map")
+    errs = {f: float((getattr(fresh, f) - getattr(reused, f)).abs().max())
+            for f in fields}
+    bit = all(torch.equal(getattr(fresh, f), getattr(reused, f))
+              for f in fields)
+    log(f"[track] rasterize(binn=margin binning) vs a fresh rasterize at the "
+        f"binning pose: max_abs_err {errs}, bit-equal {bit}")
+    check(all(e <= 5e-6 for e in errs.values()),
+          "rasterize with the reused margin binning equals a fresh one at the "
+          "binning pose (atol 5e-6)")
+
+    # the card against the CPU path on a small scene: the CPU's scene, its
+    # frame and start pose moved to the card
+    sc = tracking_frame(device="cpu", **SMALL_TRACK)
+    v_c, c_c, cs_c = track_frame(sc.model, sc.view0, sc.frame, sc.cfg,
+                                 sc.tcfg, sc.camera)
+    to = lambda x: x.to(dev)
+    v_g, c_g, cs_g = track_frame(
+        mapping_model(p=SMALL_TRACK["p"], device=dev), to(sc.view0),
+        Frame(to(sc.frame.rgb), to(sc.frame.depth)), sc.cfg, sc.tcfg,
+        sc.camera.replace(viewmatrix=to(sc.camera.viewmatrix)))
+    log(f"[small] tracking {SMALL_TRACK}: costs on the card {cs_g.tolist()}, "
+        f"on the CPU {cs_c.tolist()}; pose_err_after card "
+        f"{float((v_g.cpu() - sc.camera.viewmatrix).abs().max())}, CPU "
+        f"{float((v_c - sc.camera.viewmatrix).abs().max())}")
+    check(torch.allclose(cs_g.cpu(), cs_c, rtol=1e-3, atol=0.0),
+          "the card's track_frame agrees with the CPU path's per-iteration "
+          "costs on a small scene (rtol 1e-3)")
+
+
+def tracking_times(st, dev, card):
+    """Phase 4 for the tracking path: the ``render_jvp`` kernel (light and
+    full) with its plain version and bound, one dual render, ms per
+    tracked frame over 5 frames, and a profile of one tracked frame.
+    Returns the ``kernels`` line's two entries."""
+    import torch
+    from diff_gaussian_rasterization_tpu_torch.models.slam import track_frame
+    from diff_gaussian_rasterization_tpu_torch.ops import rasterize as ras
+    from diff_gaussian_rasterization_tpu_torch.ops.kernels import render
+    ts, binn, core_kw = st["ts"], st["binn"], st["core_kw"]
+    start, stop = binn.tile_start, binn.tile_stop
+    n_tiles, q = st["variants"]["light"]["gt_tiles"].shape
+    pixmask = render.pixel_coords(n_tiles, core_kw["tiles_x"],
+                                  ts.cfg.tile_h, ts.cfg.tile_w,
+                                  core_kw["height"], core_kw["width"],
+                                  dev)[2]
+    entries = []
+    for variant in ("light", "full"):
+        v = st["variants"][variant]
+        full = variant == "full"
+        table, tans, gt_tiles = v["table"], v["tans"], v["gt_tiles"]
+        k_t = tans.shape[1] // (6 if full else 3)
+        out_f = torch.empty((n_tiles, 9, q), device=dev)
+        out_i = torch.empty((n_tiles, 3, q), dtype=torch.int32, device=dev)
+        out_t = torch.empty((n_tiles, k_t, 6, q), device=dev)
+        ms = time_ms(lambda: render.launch_render_jvp(
+            table, tans, start, stop, gt_tiles, out_f, out_i, out_t,
+            full=full, **core_kw), iters=20)
+        ms_plain = time_ms(lambda: render.core_fwd_jvp_reference(
+            table, tans, start, stop, gt_tiles, full=full, **core_kw),
+            iters=2, warmup=1)
+        _, _, finfo = render_fwd_bound_ms(v["out_k"], start, stop, pixmask)
+        n_seg = int((stop - start).sum())
+        bound, by, binfo = render_jvp_bound_ms(
+            finfo["pairs"], finfo["contributions"], n_seg, n_tiles, q, k_t,
+            6 if full else 3)
+        log(f"[time] {card}: render_jvp ({variant}, K={k_t}) kernel "
+            f"{ms:.4f} ms (bound {bound:.4f} ms by {by}: "
+            f"{json.dumps(dict(finfo, **binfo))}), plain version "
+            f"{ms_plain:.3f} ms")
+        entries.append(dict(
+            name="render_jvp" if variant == "light" else "render_jvp_full",
+            route="cuda",
+            source="diff_gaussian_rasterization_tpu_torch/ops/kernels/csrc/"
+                   "render_jvp.cu",
+            replaces="diff_gaussian_rasterization_tpu/ops/kernels/"
+                     "render_pallas.py:440",
+            launches=st["counts"][variant]["render_jvp"], max_abs_err=v["err"],
+            ms=ms, plain_ms=ms_plain, bound_ms=bound, bound_by=by,
+            library_ms=None))
+
+    args = (st["means"], ts.camera, ts.cfg)
+    with torch.no_grad():
+        ms_dual = time_ms(lambda: ras.rasterize_with_pose_jvp(
+            *args, st["tw"], gt_depth=ts.frame.depth, binn=binn,
+            **st["kwm"]), iters=10)
+        # its stages before the kernel: the preprocess alone, and with the
+        # batched forward-mode pass and the row gather
+        ms_prep = time_ms(lambda: ras.prepare(
+            *args, None, ts.frame.depth, binn=binn, **st["kwm"]), iters=10)
+        ms_tables = time_ms(lambda: ras.pose_jvp_tables(
+            *args, st["tw"], None, ts.frame.depth, binn=binn, **st["kwm"]),
+            iters=10)
+    track = lambda cfg: track_frame(ts.model, ts.view0, ts.frame, cfg,
+                                    ts.tcfg, ts.camera)
+    ms_track = time_ms(lambda: track(ts.cfg), iters=5, warmup=1)
+    ms_track_full = time_ms(lambda: track(st["variants"]["full"]["cfg"]),
+                            iters=5, warmup=1)
+    log(f"[time] {card}: one rasterize_with_pose_jvp (K=6, frozen binning) "
+        f"{ms_dual:.3f} ms, of which pose_jvp_tables {ms_tables:.3f} ms "
+        f"(its preprocess alone, prepare: {ms_prep:.3f} ms); ms per tracked "
+        f"frame at the record "
+        f"configuration {ms_track:.3f} (full variant {ms_track_full:.3f}) "
+        f"over 5 frames; pose_err_before/after {st['pose_err']}")
+    wall, busy, lines = profile_breakdown(lambda: track(ts.cfg))
+    if busy > 0:
+        log(f"[profile] {card}: one tracked frame {wall:.3f} ms host clock, "
+            f"device busy {busy:.3f} ms ({busy / wall:.3f} of the window, "
+            f"idle share {1 - busy / wall:.3f}); device time by kernel:")
+        for line in lines:
+            log(f"[profile]   {line}")
+    else:
+        log("[profile] torch.profiler saw no device time: not measured")
+    return entries
+
+
 def main():
     import torch
 
@@ -456,6 +803,8 @@ def main():
           and torch.equal(s_k[1], s_p[1]),
           "segment_sum matches its plain version (rtol 1e-5, atol 1e-5; "
           "counts exactly)")
+    # render_jvp on the tracking path's full-resolution dual render
+    trk = tracking_kernels(dev, check)
 
     # ---- 3. the main path ----------------------------------------------
     model = random_model(seed=0, sh_degree=3, device=dev)
@@ -616,6 +965,8 @@ def main():
     check(all(bool(torch.isfinite(getattr(model, f)).all())
               for f in PARAM_FIELDS) and float(dstate.denom.max()) == 5.0,
           "finite parameters and densify statistics after five map steps")
+    # tracking: track_frame at bench_tracking.py's record configuration
+    tracking_path(trk, dev, check)
 
     # ---- 4. times ------------------------------------------------------
     render_kw = dict(max_instances=max_inst, **kw)
@@ -713,6 +1064,8 @@ def main():
     else:
         log("[profile] torch.profiler saw no device time: not measured")
 
+    jvp_entries = tracking_times(trk, dev, card)
+
     # the largest errors over both scales' comparisons
     err_fwd, err_bwd, err_rows = (max(bench[k], mapped[k]) for k in
                                   ("err_fwd", "err_bwd", "err_rows"))
@@ -749,7 +1102,7 @@ def main():
              launches=counts_fb["segment_sum_rows"], max_abs_err=err_rows,
              ms=ms_rows, plain_ms=ms_rows_plain, bound_ms=bound_rows,
              bound_by="bytes", library_ms=ms_rows_lib),
-    ]
+    ] + jvp_entries
     log(json.dumps({"kernels": kernels}))
     if failures:
         log(f"FAILED: {failures}")

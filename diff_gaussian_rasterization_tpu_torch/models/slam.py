@@ -1,23 +1,35 @@
 """SLAM-level helpers (PyTorch port of the JAX package's ``models/slam.py``):
-the render wrapper, the RGB-D loss, and the single-device mapping step.
+the render wrapper, the RGB-D loss, single-device tracking and the
+single-device mapping step.
+
+Tracking (CG-SLAM's tracking step) fits the 6-DoF pose of a new frame
+against the map, the Gaussians frozen: ``track_frame`` with exact
+Gauss-Newton / Levenberg-Marquardt on the pose JVP (``"gn"``, one dual
+render per iteration), Gauss-Newton on central differences of the forward
+(``"gn_fd"``), or Adam on the twist (``"adam"``).  The iterations are a
+Python loop whose accept/reject decisions stay on the device
+(``torch.where``), so no iteration waits on the host.
 
 Mapping (CG-SLAM's mapping step) is Adam on the Gaussian parameters over a
 window of keyframes, each rendered with ``track_off=True``, with one
-parameter group per field.  The optimizer is PyTorch's and carries its own
-state, in place of the JAX version's optax state.  Tracking, densify/prune,
-``mapping_round`` and the meshed (multi-device) mapping are not ported yet.
+parameter group per field.  The optimizers are PyTorch's and carry their
+own state, in place of the JAX version's optax state.  Densify/prune,
+``mapping_round`` and the meshed (multi-device) paths are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, NamedTuple, Optional
 
 import torch
 
 from ..camera import Camera
 from ..config import RasterConfig
-from ..ops.rasterize import rasterize
+from ..ops.binning import default_max_instances
+from ..ops.rasterize import bin_for_view, rasterize, rasterize_with_pose_jvp
+from . import lie
 from .gaussians import PARAM_FIELDS, DensifyState, GaussianModel
 
 GEOMETRY_FIELDS = ("means3D", "scales_log", "rotations")
@@ -64,6 +76,325 @@ def rgbd_loss(out, frame: Frame, w_color: float = 1.0, w_depth: float = 0.5,
         loss = torch.where(color_mask.sum() > 0, loss,
                            torch.full_like(loss, float("inf")))
     return loss
+
+
+@dataclasses.dataclass(frozen=True)
+class TrackingConfig:
+    """The JAX package's ``TrackingConfig``, field for field."""
+
+    iters: int = 12
+    method: str = "gn"      # "gn" (exact forward-mode Jacobian)
+                            # | "gn_fd" (central-difference Jacobian on the
+                            #   forward path) | "adam" (first order)
+    lr: float = 2e-3        # adam only
+    huber: float = 0.05     # gn robust-loss scale
+    lam0: float = 1e-4      # gn initial LM damping
+    fd_eps: float = 2e-3    # gn_fd twist perturbation (rad / m)
+    # color-led weighting: the depth residual divides by the silhouette,
+    # whose Jacobian is noisy at splat edges, so it stays a mild regularizer
+    w_color: float = 1.0
+    w_depth: float = 0.25
+    sil_threshold: float = 0.99
+    # coarse to fine: track at 1/2^(L-1) ... 1/2, then full resolution;
+    # a coarse level's basin covers 2^l times the image motion.  1 = off.
+    pyramid: int = 1
+    coarse_iters: int = 5   # iterations per coarse level
+    # bin once per pyramid level (at its start pose, with bin_margin_px of
+    # footprint slack) and reuse that binning in every GN iteration
+    freeze_binning: bool = False
+    bin_margin_px: float = 8.0
+    # True: every GN step is validated by a residual render before it is
+    # accepted (2 renders an iteration).  False: deferred accept, the next
+    # iteration's dual render evaluates the previous trial step (a
+    # rejected step is halved), 1 dual render an iteration.
+    line_search: bool = False
+
+
+def frozen_budget(cfg: RasterConfig, p: int, margin_px: float) -> int:
+    """The instance budget of a frozen binning with ``margin_px`` of slack:
+    the margin grows the instance count by about (1 + m/tw)(1 + m/th), so
+    the render budget is scaled by that (rounded up to 1024), or the margin
+    binning overflows and drops real instances."""
+    mi = cfg.max_instances or default_max_instances(p,
+                                                    cfg.instance_multiplier)
+    scale = (1.0 + margin_px / cfg.tile_w) * (1.0 + margin_px / cfg.tile_h)
+    return int(-(-int(mi * scale) // 1024) * 1024)
+
+
+def _huber_cost(r, huber: float):
+    """0.5 sum w r^2 with the Huber IRLS weights w, and w."""
+    w = 1.0 / torch.sqrt(1.0 + (r / huber) ** 2)
+    return 0.5 * (w * r * r).sum(), w
+
+
+def _lm_solve(h, g, lam):
+    """The damped normal equations' step; ``solve_ex`` does not wait on
+    the host to check the factorization (a failed one gives non-finite
+    entries, which the callers test)."""
+    eye = torch.eye(6, dtype=h.dtype, device=h.device)
+    a = h + lam * torch.diag(torch.diag(h)) + 1e-9 * eye
+    return torch.linalg.solve_ex(a, -g)[0]
+
+
+def _lm_damping(accept, lam):
+    return torch.where(accept, torch.clamp_min(lam / 3.0, 1e-7),
+                       torch.clamp_max(lam * 5.0, 1e3))
+
+
+class _Tracker:
+    """What the three tracking methods share at one pyramid level: the
+    frozen model, the camera of a twist, and the residuals."""
+
+    def __init__(self, model: GaussianModel, view0, rgb, depth,
+                 cfg: RasterConfig, tcfg: TrackingConfig, height: int,
+                 width: int, tanfovx: float, tanfovy: float):
+        self.means = model.means3D.detach()
+        self.kw = {k: (v.detach() if torch.is_tensor(v) else v)
+                   for k, v in model.raster_kwargs().items()}
+        self.view0, self.frame = view0.detach(), Frame(rgb, depth)
+        self.cfg, self.tcfg = cfg, tcfg
+        self.geometry = (tanfovx, tanfovy, height, width)
+        self.sqc, self.sqd = math.sqrt(tcfg.w_color), math.sqrt(tcfg.w_depth)
+        self.zero = torch.zeros(6, dtype=view0.dtype, device=view0.device)
+        self.inf = torch.full((), math.inf, dtype=view0.dtype,
+                              device=view0.device)
+
+    def camera(self, view) -> Camera:
+        tanfovx, tanfovy, height, width = self.geometry
+        return Camera(viewmatrix=view, tanfovx=tanfovx, tanfovy=tanfovy,
+                      height=height, width=width)
+
+    def render(self, xi, **kw):
+        return rasterize(self.means, self.camera(lie.apply_twist(
+            self.view0, xi)), self.cfg, gt_depth=self.frame.depth,
+            **self.kw, **kw)
+
+    def mask(self, out):
+        return ((out.opacity_map[0] > self.tcfg.sil_threshold)
+                & (self.frame.depth > 0)).to(self.frame.rgb.dtype)
+
+    def residuals(self, out, m):
+        sil = out.opacity_map[0]
+        rc = ((out.color - self.frame.rgb) * m[None]).reshape(-1)
+        depth_est = out.depth[0] / torch.clamp_min(sil, 1e-6)
+        rd = ((depth_est - self.frame.depth) * m).reshape(-1)
+        return torch.cat([self.sqc * rc, self.sqd * rd])
+
+
+def _track_gn(tr: _Tracker, binnings=None):
+    """Exact Gauss-Newton / Levenberg-Marquardt on the pose twist.
+
+    The (N x 6) residual Jacobian comes from one ``rasterize_with_pose_jvp``
+    (the render and its 6 twist-basis tangents in one dual pass) per
+    evaluation.  With ``freeze_binning`` the level bins once, at its start
+    pose with ``bin_margin_px`` of slack and a budget scaled to the margin,
+    and every render reuses that binning (appended to ``binnings`` when a
+    list is given)."""
+    cfg, tcfg = tr.cfg, tr.tcfg
+    bkw = {}
+    if tcfg.freeze_binning:
+        m = tcfg.bin_margin_px
+        bkw["binn"] = bin_for_view(
+            tr.means, tr.camera(tr.view0), cfg.replace(bin_margin_px=m),
+            max_instances=frozen_budget(cfg, tr.means.shape[0], m), **tr.kw)
+        if binnings is not None:
+            binnings.append(bkw["binn"])
+
+    def gn_eval(xi):
+        view = lie.apply_twist(tr.view0, xi)
+        # twist-basis tangents of the view matrix at xi: [4, 4, 6]
+        tw = torch.func.jacfwd(lambda x: lie.apply_twist(tr.view0, x))(xi)
+        j = rasterize_with_pose_jvp(
+            tr.means, tr.camera(view), cfg, tw.movedim(-1, 0),
+            gt_depth=tr.frame.depth, **tr.kw, **bkw)
+        out = j.out
+        m = tr.mask(out)
+        r = tr.residuals(out, m)
+        sil = out.opacity_map[0]
+        silc = torch.clamp_min(sil, 1e-6)
+        dsil = torch.where(sil > 1e-6, j.opacity_map,
+                           torch.zeros_like(j.opacity_map))    # [6, H, W]
+        jc = (j.color * m[None, None]).reshape(6, -1)
+        jd = ((j.depth * silc[None] - out.depth[0][None] * dsil)
+              / (silc * silc)[None] * m[None]).reshape(6, -1)
+        jac = torch.cat([tr.sqc * jc, tr.sqd * jd], 1)          # [6, N]
+        cost, w = _huber_cost(r, tcfg.huber)
+        jw = jac * w[None, :]
+        return jw @ jac.T, jw @ r, cost
+
+    def cost_at(xi):
+        out = tr.render(xi, map_off=True, track_off=True, **bkw)
+        return _huber_cost(tr.residuals(out, tr.mask(out)), tcfg.huber)[0]
+
+    lam = torch.full((), tcfg.lam0, dtype=tr.zero.dtype,
+                     device=tr.zero.device)
+    best_xi, best_cost, costs = tr.zero, tr.inf, []
+    if tcfg.line_search:
+        xi = tr.zero
+        for _ in range(tcfg.iters):
+            h, g, cost = gn_eval(xi)
+            better = cost < best_cost
+            best_xi = torch.where(better, xi, best_xi)
+            best_cost = torch.where(better, cost, best_cost)
+            dx = _lm_solve(h, g, lam)
+            xi2 = xi + dx
+            accept = (cost_at(xi2) < cost) & torch.isfinite(dx).all()
+            xi = torch.where(accept, xi2, xi)
+            lam = _lm_damping(accept, lam)
+            costs.append(cost)
+        final = cost_at(xi)
+        better = final < best_cost
+        return (torch.where(better, xi, best_xi),
+                torch.where(better, final, best_cost), torch.stack(costs))
+
+    # deferred accept: anchor = last accepted point, dx = pending trial
+    # step; a rejected trial keeps the anchor and retries half the step
+    # with more damping.  best_* tracks every evaluated point.
+    anchor, dx, cost_anchor = tr.zero, tr.zero, tr.inf
+    for _ in range(tcfg.iters):
+        xi_try = anchor + dx
+        h, g, cost = gn_eval(xi_try)
+        better = cost < best_cost
+        best_xi = torch.where(better, xi_try, best_xi)
+        best_cost = torch.where(better, cost, best_cost)
+        accept = cost < cost_anchor
+        lam = _lm_damping(accept, lam)
+        dx_new = _lm_solve(h, g, lam)
+        ok = torch.isfinite(dx_new).all()
+        dx = torch.where(accept & ok, dx_new, 0.5 * dx)
+        anchor = torch.where(accept, xi_try, anchor)
+        cost_anchor = torch.where(accept, cost, cost_anchor)
+        costs.append(cost)
+    return best_xi, best_cost, torch.stack(costs)
+
+
+def _track_gn_fd(tr: _Tracker, binnings=None):
+    """Gauss-Newton / LM with the residual Jacobian from central
+    differences of the forward render (12 renders an iteration); the Huber
+    weights and the mask are frozen at the iteration's base pose, so every
+    column differentiates the same residual."""
+    tcfg = tr.tcfg
+    eps = tcfg.fd_eps
+
+    def render_out(xi):
+        return tr.render(xi, map_off=True, track_off=True)
+
+    def base_eval(xi):
+        out = render_out(xi)
+        m = tr.mask(out)
+        return tr.residuals(out, m), m
+
+    lam = torch.full((), tcfg.lam0, dtype=tr.zero.dtype,
+                     device=tr.zero.device)
+    xi, best_xi, best_cost, costs = tr.zero, tr.zero, tr.inf, []
+    basis = torch.eye(6, dtype=xi.dtype, device=xi.device) * eps
+    for _ in range(tcfg.iters):
+        r0, m = base_eval(xi)
+        cost, w = _huber_cost(r0, tcfg.huber)
+        better = cost < best_cost
+        best_xi = torch.where(better, xi, best_xi)
+        best_cost = torch.where(better, cost, best_cost)
+        # central differences: the secant bias is O(eps^2)
+        jac = torch.stack([
+            (tr.residuals(render_out(xi + e), m)
+             - tr.residuals(render_out(xi - e), m)) / (2.0 * eps)
+            for e in basis])                                    # [6, N]
+        jw = jac * w[None, :]
+        dx = _lm_solve(jw @ jac.T, jw @ r0, lam)
+        xi2 = xi + dx
+        accept = ((_huber_cost(base_eval(xi2)[0], tcfg.huber)[0] < cost)
+                  & torch.isfinite(dx).all())
+        xi = torch.where(accept, xi2, xi)
+        lam = _lm_damping(accept, lam)
+        costs.append(cost)
+    final = _huber_cost(base_eval(xi)[0], tcfg.huber)[0]
+    better = final < best_cost
+    return (torch.where(better, xi, best_xi),
+            torch.where(better, final, best_cost), torch.stack(costs))
+
+
+def _track_adam(tr: _Tracker, binnings=None):
+    """First-order tracking: Adam on the twist through the render's
+    backward (pose gradients only, ``map_off``)."""
+    tcfg = tr.tcfg
+
+    def loss_at(xi):
+        out = tr.render(xi, map_off=True)
+        return rgbd_loss(out, tr.frame, tcfg.w_color, tcfg.w_depth,
+                         tcfg.sil_threshold, tracking=True)
+
+    with torch.enable_grad():
+        xi = tr.zero.clone().requires_grad_(True)
+        opt = torch.optim.Adam([xi], lr=tcfg.lr, betas=(0.9, 0.999),
+                               eps=1e-8)
+        best_xi, best_loss, losses = tr.zero, tr.inf, []
+        for _ in range(tcfg.iters):
+            opt.zero_grad(set_to_none=True)
+            loss = loss_at(xi)
+            loss.backward()
+            loss = loss.detach()
+            better = loss < best_loss
+            best_xi = torch.where(better, xi.detach(), best_xi)
+            best_loss = torch.where(better, loss, best_loss)
+            opt.step()
+            losses.append(loss)
+    with torch.no_grad():
+        final = loss_at(xi.detach())
+    better = final < best_loss
+    return (torch.where(better, xi.detach(), best_xi),
+            torch.where(better, final, best_loss), torch.stack(losses))
+
+
+def downsample_frame(frame: Frame, s: int) -> Frame:
+    """Mean-pool RGB by ``s``; depth pools only over valid (> 0) pixels so
+    sensor holes do not bleed zeros into the pooled depth."""
+    c, h, w = frame.rgb.shape
+    rgb = frame.rgb.reshape(c, h // s, s, w // s, s).mean((2, 4))
+    d = frame.depth.reshape(h // s, s, w // s, s)
+    v = (d > 0).to(d.dtype)
+    nv = v.sum((1, 3))
+    depth = torch.where(nv > 0, (d * v).sum((1, 3)) / torch.clamp_min(nv, 1),
+                        torch.zeros_like(nv))
+    return Frame(rgb=rgb, depth=depth)
+
+
+def track_frame(model: GaussianModel, view0, frame: Frame,
+                cfg: RasterConfig, tcfg: TrackingConfig,
+                camera_template: Camera, mesh=None, tile_axis="tile",
+                map_axis=None, map_budget: int = 0, binnings=None):
+    """Pose-only optimization of one frame against the frozen model
+    (CG-SLAM's tracking step).  Returns ``(view, best_cost, costs)``: the
+    best view found, its cost, and the cost of every iteration at the
+    finest level.
+
+    With ``tcfg.pyramid > 1`` the pose is first converged on mean-pooled
+    half/quarter-resolution copies of the frame (same field of view), then
+    polished at full resolution; levels the pooling cannot divide are
+    skipped.  ``binnings``, when a list, receives each frozen binning
+    (``"gn"`` with ``freeze_binning``), one per level.  ``mesh`` and
+    ``map_axis`` (sharded tracking) are not ported.
+    """
+    if mesh is not None or map_axis is not None:
+        raise NotImplementedError(
+            "sharded tracking (tile or map sharding) is not ported: "
+            "track_frame runs on one device")
+    impl = {"gn": _track_gn, "gn_fd": _track_gn_fd}.get(tcfg.method,
+                                                        _track_adam)
+    h, w = camera_template.height, camera_template.width
+    fov = (camera_template.tanfovx, camera_template.tanfovy)
+    view = view0.detach()
+    levels = [(2 ** lvl, dataclasses.replace(tcfg, pyramid=1,
+                                             iters=tcfg.coarse_iters))
+              for lvl in range(max(tcfg.pyramid, 1) - 1, 0, -1)
+              if not (h % 2 ** lvl or w % 2 ** lvl)]
+    with torch.no_grad():
+        for s, tcfg_l in levels + [(1, tcfg)]:
+            fl = frame if s == 1 else downsample_frame(frame, s)
+            tr = _Tracker(model, view, fl.rgb, fl.depth, cfg, tcfg_l, h // s,
+                          w // s, *fov)
+            xi, cost, costs = impl(tr, binnings)
+            view = lie.apply_twist(tr.view0, xi)
+    return view, cost, costs
 
 
 @dataclasses.dataclass(frozen=True)

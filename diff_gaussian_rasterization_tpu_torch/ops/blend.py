@@ -19,6 +19,10 @@ running prefix ``pre_all`` of ``w * s``, where ``s`` is an instance's
 features dotted with its pixel's cotangents, so the gradient of every
 alpha needs only the pixel's total and that prefix.
 
+The dual forward (:func:`blend_chunk_fwd_jvp`) carries K pose tangents
+through the same chunk: the forward's weights with the selection masks
+frozen, and per tangent the exact derivative of every weight.
+
 Every function takes any number of leading batch dimensions: instance
 tensors are ``[..., G, k]``, pixel tensors ``[..., Q]``, masks and weights
 ``[..., G, Q]``.  The plain render core (``kernels/render.py``) runs them on
@@ -122,7 +126,7 @@ def chunk_weights(prod_in, xy, conic, opacity, valid, px, py,
 
 def blend_chunk_fwd(carry: BlendCarry, xy, conic, opacity, color, depth,
                     depth_med, valid, px, py, base_index, cfg: RasterConfig,
-                    global_base=None) -> BlendCarry:
+                    global_base=None, weights=None) -> BlendCarry:
     """Blend one front-to-back chunk of instances into the carry.
 
     Args:
@@ -134,9 +138,13 @@ def blend_chunk_fwd(carry: BlendCarry, xy, conic, opacity, color, depth,
       global_base: [...] or scalar, position of this chunk's first instance
         in the whole instance stream (``midx`` counts from it); defaults to
         ``base_index``.
+      weights: this chunk's :func:`chunk_weights`, when the caller has
+        them already.
     """
-    alpha, v, p_incl, t_excl, contrib, w, cross = chunk_weights(
-        carry.prod, xy, conic, opacity, valid, px, py, cfg)
+    if weights is None:
+        weights = chunk_weights(carry.prod, xy, conic, opacity, valid, px,
+                                py, cfg)
+    alpha, v, p_incl, t_excl, contrib, w, cross = weights
     g = xy.shape[-2]
     dev = xy.device
     gi = torch.arange(g, dtype=torch.int32, device=dev)
@@ -177,6 +185,113 @@ def blend_chunk_fwd(carry: BlendCarry, xy, conic, opacity, color, depth,
         ucross_d=carry.ucross_d + usum(depth_med),
         ucross_w=carry.ucross_w + cww.sum(dim=-2),
     )
+
+
+# --------------------------------------------------------------------------
+# dual forward: the blend plus K pose tangents
+# --------------------------------------------------------------------------
+
+
+class JvpCarry(NamedTuple):
+    """Running state of the dual pass (forward + K pose tangents).  The
+    tangent streams are stacked on a K axis just before the pixel axis.
+
+    Math (the selection masks frozen): with ``s_i = dalpha_i / (1 -
+    alpha_i)`` summed over contributors into ``S``, ``dT_i = -T_i *
+    S^excl_i``, so ``dw_i = w_i * (dpower_i - S^excl_i)`` on uncapped
+    contributors (``dalpha = alpha * dpower`` there, 0 where alpha is
+    capped), and every accumulated output tangent is one more contraction
+    against ``dw``.
+    """
+
+    primal: BlendCarry
+    s: torch.Tensor       # [..., K, Q] running sum of s over contributors
+    color: torch.Tensor   # [..., K, C, Q]
+    depth: torch.Tensor   # [..., K, Q]
+    weight: torch.Tensor  # [..., K, Q]
+    median: torch.Tensor  # [..., K, Q]
+
+
+def init_jvp_carry(shape, k: int, channels: int = 3, dtype=torch.float32,
+                   device="cuda") -> JvpCarry:
+    """The initial dual carry for pixel tensors of ``shape`` ([..., Q])
+    and ``k`` tangents."""
+    shape = tuple(shape)
+    lead, q = shape[:-1], shape[-1:]
+    z = lambda *mid: torch.zeros(lead + (k,) + mid + q, dtype=dtype,
+                                 device=device)
+    return JvpCarry(primal=init_carry(shape, channels, dtype, device),
+                    s=z(), color=z(channels), depth=z(), weight=z(),
+                    median=z())
+
+
+def blend_chunk_fwd_jvp(carry: JvpCarry, xy, conic, opacity, color, depth,
+                        depth_med, tan_xy, tan_depth, valid, px, py,
+                        base_index, cfg: RasterConfig, global_base=None,
+                        tan_depth_med=None, tan_conic=None) -> JvpCarry:
+    """One chunk of the forward blend plus exact propagation of K pose
+    tangents.
+
+    The instance and pixel arguments are :func:`blend_chunk_fwd`'s.
+    Tangents enter through the splat centers and depths, ``tan_xy``
+    [..., K, G, 2] and ``tan_depth`` [..., K, G] (the light variant's pose
+    Jacobian); ``tan_conic`` [..., K, G, 3] (dA, dB, dC) also propagates
+    the 2D-covariance branch, the full variant's, through
+    ``dpower -= 0.5 dx^2 dA + dx dy dB + 0.5 dy^2 dC``.  The median's
+    tangent sums ``tan_depth_med`` [..., K, G] over the (frozen) crossing;
+    None leaves it unchanged, as in the render path, where the median reads
+    the pose-detached depth copy.
+    """
+    weights = chunk_weights(carry.primal.prod, xy, conic, opacity, valid,
+                            px, py, cfg)
+    alpha, _, _, _, contrib, w, cross = weights
+    primal = blend_chunk_fwd(carry.primal, xy, conic, opacity, color, depth,
+                             depth_med, valid, px, py, base_index, cfg,
+                             global_base=global_base, weights=weights)
+
+    # shared by all tangents: the quadratic form's partials and the rate
+    dxp = xy[..., 0:1] - px[..., None, :]                   # [..., G, Q]
+    dyp = xy[..., 1:2] - py[..., None, :]
+    a_, b_, c_ = conic[..., 0:1], conic[..., 1:2], conic[..., 2:3]
+    gx = (a_ * dxp + b_ * dyp)[..., None, :, :]             # -dpower/dx
+    gy = (c_ * dyp + b_ * dxp)[..., None, :, :]             # -dpower/dy
+    capped = alpha >= cfg.alpha_cap
+    zero = torch.zeros_like(alpha)
+    rate = torch.where(contrib & ~capped, alpha / (1.0 - alpha), zero)
+
+    dpow = -(gx * tan_xy[..., 0:1] + gy * tan_xy[..., 1:2])  # [..., K, G, Q]
+    if tan_conic is not None:
+        dxe, dye = dxp[..., None, :, :], dyp[..., None, :, :]
+        dpow = (dpow - (0.5 * tan_conic[..., 0:1] * dxe
+                        + tan_conic[..., 1:2] * dye) * dxe
+                - 0.5 * tan_conic[..., 2:3] * dye * dye)
+    s = rate[..., None, :, :] * dpow
+    s_tot = carry.s[..., None, :] + torch.cumsum(s, dim=-2)  # inclusive S
+    s_excl = s_tot - s
+    wk = w[..., None, :, :]
+    dw = wk * (torch.where(capped[..., None, :, :], zero[..., None, :, :],
+                           dpow) - s_excl)
+    if tan_depth_med is None:
+        median = carry.median
+    else:
+        median = carry.median + torch.einsum(
+            "...kg,...gq->...kq", tan_depth_med, cross.to(w.dtype))
+    return JvpCarry(
+        primal=primal,
+        s=s_tot[..., -1, :],
+        color=carry.color + torch.einsum("...gc,...kgq->...kcq", color, dw),
+        depth=(carry.depth + torch.einsum("...g,...kgq->...kq", depth, dw)
+               + torch.einsum("...kg,...gq->...kq", tan_depth, w)),
+        weight=carry.weight + dw.sum(dim=-2),
+        median=median,
+    )
+
+
+def finish_t_final_tangent(carry: JvpCarry):
+    """[..., K, Q] tangents of t_final, ``dT_final = -T_final * S_final``
+    (s is zero past termination, so S ends at the last contributor,
+    where t_final froze)."""
+    return -carry.primal.t_final[..., None, :] * carry.s
 
 
 # --------------------------------------------------------------------------

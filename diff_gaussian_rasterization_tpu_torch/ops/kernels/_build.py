@@ -44,6 +44,10 @@ SIGNATURES = {
                        _F, _F, _F, _I, _I, _P],
         "segment_sum_rows": [_P, _P, _P, _P, _P, _I, _I, _P],
     },
+    "render_jvp": {
+        "render_jvp": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                       _I, _F, _F, _F, _I, _I, _P],
+    },
 }
 
 _libs: dict = {}

@@ -17,6 +17,14 @@ kernel ``csrc/render_bwd.cu`` on CUDA tensors, ``core_bwd_reference`` (the
 counterpart of ``tile_xla.core_bwd_xla``) on CPU tensors.  Each instance
 belongs to one tile, so every row has one writer and no atomics are needed.
 
+``core_fwd_jvp`` is the dual forward: the forward's outputs plus K pose
+tangents per pixel (:class:`PoseTangents`), from a sorted tangent table
+``[I, per_k * K]`` gathered by the same rows as the features.  It is the
+port of ``render_pallas._jvp_kernel``: the kernel ``csrc/render_jvp.cu`` on
+CUDA tensors (its primal outputs bit-equal to ``render_fwd``'s), and
+``core_fwd_jvp_reference`` (the counterpart of
+``tile_xla.core_fwd_jvp_xla``) on CPU tensors.
+
 The per-instance median-crossing statistics ``u_inst``/``npix_inst`` are a
 scatter of per-pixel ``(midx, ucross)``.  On the card that reduction is a
 stable sort by key followed by the ``segment_sum`` kernel, so it is
@@ -41,15 +49,19 @@ from ...config import RasterConfig
 from .. import blend
 
 FEAT = 11  # columns of the sorted feature table
-MAX_TILE_PX = 1024  # the kernels own at most 4 pixels in each of 256 threads
+MAX_TILE_PX = 1024  # 4 pixels per thread (fwd, bwd), 4 blocks a tile (dual)
 # columns of the backward's gradient rows
 ROW_COLUMNS = ("x", "y", "A", "B", "C", "opacity", "r", "g", "b", "depth",
                "depth_var", "depth_med")
 ROW = len(ROW_COLUMNS)
 TILE_BATCH = 64  # tiles the plain versions blend at once
 
+# tangent counts the render_jvp kernel is instantiated for (the JAX kernel
+# takes any static K; 6 is the twist basis)
+JVP_K = (1, 6)
+
 launches = {"render_fwd": 0, "segment_sum": 0, "render_bwd": 0,
-            "segment_sum_rows": 0}
+            "segment_sum_rows": 0, "render_jvp": 0}
 
 
 def reset_launches():
@@ -76,6 +88,18 @@ class CoreOutputs(NamedTuple):
     midx: torch.Tensor       # [T, Q] int32: global index of median crossing
     u_inst: torch.Tensor     # [I]
     npix_inst: torch.Tensor  # [I] int32
+
+
+class PoseTangents(NamedTuple):
+    """K pose-tangent streams of the render core, tile-major like
+    :class:`CoreOutputs`, the tangents stacked on axis 1.  ``median`` is
+    zeros: the median reads the pose-detached depth copy."""
+
+    color: torch.Tensor    # [T, K, C, Q]
+    depth: torch.Tensor    # [T, K, Q]
+    weight: torch.Tensor   # [T, K, Q]
+    median: torch.Tensor   # [T, K, Q]
+    t_final: torch.Tensor  # [T, K, Q]
 
 
 def pixel_coords(n_tiles: int, tiles_x: int, th: int, tw: int, height: int,
@@ -260,6 +284,28 @@ def _check_cuda(x, dtype, name):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_core_inputs(table, tile_start, tile_stop, gt_tiles,
+                       cfg: RasterConfig):
+    """What the forward kernels take: CUDA tensors of the documented
+    types and shapes, on one device, tiles of at most MAX_TILE_PX."""
+    _check_cuda(table, torch.float32, "table")
+    _check_cuda(tile_start, torch.int32, "tile_start")
+    _check_cuda(tile_stop, torch.int32, "tile_stop")
+    _check_cuda(gt_tiles, torch.float32, "gt_tiles")
+    n_tiles, q = tile_start.shape[0], cfg.tile_px
+    if table.dim() != 2 or table.shape[1] != FEAT:
+        raise ValueError(f"table must be [I, {FEAT}], got {tuple(table.shape)}")
+    if tile_stop.shape != (n_tiles,) or gt_tiles.shape != (n_tiles, q):
+        raise ValueError("tile_start/tile_stop must be [T] and gt_tiles "
+                         f"[T, {q}]")
+    if q > MAX_TILE_PX:
+        raise ValueError(f"the CUDA kernel takes tiles of at most "
+                         f"{MAX_TILE_PX} pixels, got {q}")
+    if not (table.device == tile_start.device == tile_stop.device
+            == gt_tiles.device):
+        raise ValueError("all inputs must be on one device")
+
+
 def launch_render_fwd(table, tile_start, tile_stop, gt_tiles, out_f, out_i,
                       *, cfg: RasterConfig, tiles_x: int, height: int,
                       width: int):
@@ -287,24 +333,8 @@ def core_fwd(table, tile_start, tile_stop, gt_tiles, *, cfg: RasterConfig,
         return core_fwd_reference(table, tile_start, tile_stop, gt_tiles,
                                   cfg=cfg, tiles_x=tiles_x, height=height,
                                   width=width)
-    _check_cuda(table, torch.float32, "table")
-    _check_cuda(tile_start, torch.int32, "tile_start")
-    _check_cuda(tile_stop, torch.int32, "tile_stop")
-    _check_cuda(gt_tiles, torch.float32, "gt_tiles")
-    n_tiles = tile_start.shape[0]
-    q = cfg.tile_px
-    if table.dim() != 2 or table.shape[1] != FEAT:
-        raise ValueError(f"table must be [I, {FEAT}], got {tuple(table.shape)}")
-    if tile_stop.shape != (n_tiles,) or gt_tiles.shape != (n_tiles, q):
-        raise ValueError("tile_start/tile_stop must be [T] and gt_tiles "
-                         f"[T, {q}]")
-    if q > MAX_TILE_PX:
-        raise ValueError(f"the CUDA kernel takes tiles of at most "
-                         f"{MAX_TILE_PX} pixels, got {q}")
-    if not (table.device == tile_start.device == tile_stop.device
-            == gt_tiles.device):
-        raise ValueError("all inputs must be on one device")
-    dev = table.device
+    _check_core_inputs(table, tile_start, tile_stop, gt_tiles, cfg)
+    n_tiles, q, dev = tile_start.shape[0], cfg.tile_px, table.device
     out_f = torch.empty((n_tiles, 9, q), dtype=torch.float32, device=dev)
     out_i = torch.empty((n_tiles, 3, q), dtype=torch.int32, device=dev)
     launch_render_fwd(table, tile_start, tile_stop, gt_tiles, out_f, out_i,
@@ -375,3 +405,136 @@ def core_bwd(table, tile_start, tile_stop, gt_tiles, totals, cots, *,
                        device=table.device)
     launch_render_bwd(table, tile_start, tile_stop, pix, rows, **kw)
     return rows
+
+
+# --------------------------------------------------------------------------
+# the dual forward: the render core plus K pose tangents
+# --------------------------------------------------------------------------
+
+
+def _tangent_count(tans, full: bool) -> int:
+    per_k = 6 if full else 3
+    if tans.dim() != 2 or tans.shape[1] % per_k or tans.shape[1] == 0:
+        raise ValueError(f"tans must be [I, {per_k} * K], got "
+                         f"{tuple(tans.shape)}")
+    return tans.shape[1] // per_k
+
+
+def core_fwd_jvp_reference(table, tans, tile_start, tile_stop, gt_tiles, *,
+                           cfg: RasterConfig, tiles_x: int, height: int,
+                           width: int, full: bool = False):
+    """Plain PyTorch dual render core: :func:`core_fwd_reference`'s tile
+    batches, chunks and termination, each chunk through
+    :func:`blend.blend_chunk_fwd_jvp`.  ``tans`` [I, per_k * K] holds per
+    tangent k the columns dx, dy, ddepth and, when ``full``, dA, dB, dC.
+    Returns (CoreOutputs, PoseTangents)."""
+    dev = table.device
+    n_inst = table.shape[0]
+    t_all = tile_start.shape[0]
+    k_t = _tangent_count(tans, full)
+    per_k = 6 if full else 3
+    g = max(1, min(cfg.chunk, n_inst))
+    px_all, py_all, mask_all = pixel_coords(t_all, tiles_x, cfg.tile_h,
+                                            cfg.tile_w, height, width, dev)
+    ar = torch.arange(g, device=dev)
+    outs = []
+    for b0 in range(0, t_all, TILE_BATCH):
+        sl = slice(b0, min(b0 + TILE_BATCH, t_all))
+        start = tile_start[sl].to(torch.int64)
+        stop = tile_stop[sl].to(torch.int64)
+        px, py, pixmask = px_all[sl], py_all[sl], mask_all[sl]
+        carry = blend.init_jvp_carry(px.shape, k_t, 3, table.dtype, dev)
+        maxcnt = int((stop - start).max()) if start.numel() else 0
+        for k0 in range(0, maxcnt, g):
+            if not bool(((carry.primal.prod >= cfg.t_terminate)
+                         & pixmask).any()):
+                break
+            idx = start[:, None] + k0 + ar[None, :]              # [B, G]
+            v = (idx < stop[:, None])[:, :, None] & pixmask[:, None, :]
+            idxc = idx.clamp(0, max(n_inst - 1, 0))
+            rows = table[idxc]                                  # [B, G, 11]
+            trows = tans[idxc].reshape(*idx.shape, k_t, per_k).movedim(
+                -2, -3)                                         # [B, K, G, pk]
+            carry = blend.blend_chunk_fwd_jvp(
+                carry, rows[..., 0:2], rows[..., 2:5], rows[..., 5],
+                rows[..., 6:9], rows[..., 9], rows[..., 10], trows[..., 0:2],
+                trows[..., 2], v, px, py, k0, cfg,
+                global_base=(start + k0).to(torch.int32),
+                tan_conic=trows[..., 3:6] if full else None)
+        gt = gt_tiles[sl]
+        pc = carry.primal
+        outs.append((pc.color, pc.depth, pc.weight, pc.median,
+                     blend.finish_var(pc, gt), pc.t_final, pc.n_contrib,
+                     pc.n_valid, pc.midx, blend.finish_ucross(pc, gt),
+                     carry.color, carry.depth, carry.weight, carry.median,
+                     blend.finish_t_final_tangent(carry)))
+    cat = [torch.cat(x, 0) for x in zip(*outs)]
+    midx, ucross = cat[8], cat[9]
+    u_inst, npix_inst = scatter_sum_reference(
+        midx.reshape(-1), ucross.reshape(-1),
+        torch.ones_like(midx).reshape(-1), n_inst)
+    return (CoreOutputs(*cat[:9], u_inst, npix_inst),
+            PoseTangents(*cat[10:]))
+
+
+def launch_render_jvp(table, tans, tile_start, tile_stop, gt_tiles, out_f,
+                      out_i, out_t, *, cfg: RasterConfig, tiles_x: int,
+                      height: int, width: int, full: bool = False):
+    """One launch of the ``render_jvp`` kernel into preallocated ``out_f``
+    [T, 9, Q], ``out_i`` [T, 3, Q] (both as ``render_fwd`` writes them)
+    and ``out_t`` [T, K, 6, Q] (inputs checked by :func:`core_fwd_jvp`)."""
+    from ._build import load
+    per_k = 6 if full else 3
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = load("render_jvp").render_jvp(
+            table.data_ptr(), tans.data_ptr(), tile_start.data_ptr(),
+            tile_stop.data_ptr(), gt_tiles.data_ptr(), out_f.data_ptr(),
+            out_i.data_ptr(), out_t.data_ptr(), tile_start.shape[0], tiles_x,
+            cfg.tile_w, cfg.tile_h, width, height, cfg.alpha_cap,
+            cfg.alpha_min, cfg.t_terminate, tans.shape[1] // per_k, per_k,
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"render_jvp launch failed: CUDA error {rc}")
+    launches["render_jvp"] += 1
+
+
+def core_fwd_jvp(table, tans, tile_start, tile_stop, gt_tiles, *,
+                 cfg: RasterConfig, tiles_x: int, height: int, width: int,
+                 full: bool = False):
+    """The dual render core, (CoreOutputs, PoseTangents): the ``render_jvp``
+    kernel on CUDA tensors, :func:`core_fwd_jvp_reference` on CPU tensors.
+    ``tans`` is the sorted tangent table [I, per_k * K] (per_k 3, or 6 when
+    ``full``), gathered by the same rows as ``table``."""
+    kw = dict(cfg=cfg, tiles_x=tiles_x, height=height, width=width,
+              full=full)
+    if table.device.type == "cpu":
+        return core_fwd_jvp_reference(table, tans, tile_start, tile_stop,
+                                      gt_tiles, **kw)
+    _check_core_inputs(table, tile_start, tile_stop, gt_tiles, cfg)
+    _check_cuda(tans, torch.float32, "tans")
+    k_t = _tangent_count(tans, full)
+    if k_t not in JVP_K:
+        raise ValueError(f"the render_jvp kernel is instantiated for K in "
+                         f"{JVP_K} tangents, got {k_t}")
+    if tans.shape[0] != table.shape[0] or tans.device != table.device:
+        raise ValueError("tans must have one row per row of table, on its "
+                         "device")
+    n_tiles, q, dev = tile_start.shape[0], cfg.tile_px, table.device
+    out_f = torch.empty((n_tiles, 9, q), dtype=torch.float32, device=dev)
+    out_i = torch.empty((n_tiles, 3, q), dtype=torch.int32, device=dev)
+    out_t = torch.empty((n_tiles, k_t, 6, q), dtype=torch.float32,
+                        device=dev)
+    launch_render_jvp(table, tans, tile_start, tile_stop, gt_tiles, out_f,
+                      out_i, out_t, **kw)
+    midx = out_i[:, 2]
+    u_inst, npix_inst = scatter_sum(
+        midx.reshape(-1), out_f[:, 8].reshape(-1),
+        torch.ones((n_tiles * q,), dtype=torch.int32, device=dev),
+        table.shape[0])
+    primal = CoreOutputs(out_f[:, 0:3], out_f[:, 3], out_f[:, 4],
+                         out_f[:, 5], out_f[:, 6], out_f[:, 7], out_i[:, 0],
+                         out_i[:, 1], midx, u_inst, npix_inst)
+    depth = out_t[:, :, 3]
+    return primal, PoseTangents(out_t[:, :, 0:3], depth, out_t[:, :, 4],
+                                torch.zeros_like(depth), out_t[:, :, 5])

@@ -9,18 +9,24 @@ P Gaussians in a 4 x 4 x 5.2 box in front of an identity camera at
 ``mapping_model`` is the model of the JAX package's mapping benchmark
 (``bench_tracking.make_model``, 500,000 Gaussians in ``bench_mapping.py``),
 and ``small_scene`` the JAX package's test scene (``tests/scenes.py``),
-each with the same draws in the same order.
+each with the same draws in the same order.  ``tracking_frame`` builds the
+JAX package's tracking benchmark (``bench_tracking.py``): its model, target
+frame, start pose and record configuration.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .camera import Camera
+from .config import RasterConfig
 from .models.gaussians import GaussianModel
+from .models.lie import apply_twist
+from .models.slam import Frame, TrackingConfig, render_model
 from .ops.sh import num_sh_coeffs, rgb_to_sh0
 
 BENCH_P, BENCH_H, BENCH_W = 100_000, 680, 1200
@@ -137,3 +143,41 @@ def small_scene(p=64, h=32, w=40, seed=0, sh_degree=None, device="cuda"):
         kw["shs"], kw["sh_degree"] = sh, sh_degree
         del kw["colors_precomp"]
     return t(means), kw, cam
+
+
+# bench_tracking.py's start pose: this twist applied to the identity view
+TRACKING_XI = (0.01, -0.008, 0.006, 0.004, -0.003, 0.005)
+
+
+class TrackingScene(NamedTuple):
+    model: GaussianModel
+    camera: Camera        # the target's camera (identity pose)
+    cfg: RasterConfig     # 32x32 tiles, budget 1.1x the target's count
+    frame: Frame          # the model rendered at the identity pose
+    view0: torch.Tensor   # the start pose
+    tcfg: TrackingConfig  # the record configuration
+
+
+def tracking_frame(seed=0, p=BENCH_P, height=BENCH_H, width=BENCH_W,
+                   device="cuda") -> TrackingScene:
+    """The JAX package's tracking benchmark (``bench_tracking.py``): the
+    model of :func:`mapping_model` with ``p`` Gaussians, the target frame
+    rendered at the identity pose, the instance budget 1.1x its instance
+    count (rounded up to 1024), the start pose ``apply_twist(I,
+    TRACKING_XI)``, and the record configuration (Gauss-Newton, 2
+    full-resolution and 3 half-resolution iterations, frozen binning with a
+    2 px margin, deferred accept)."""
+    model = mapping_model(seed=seed, p=p, device=device)
+    cam = bench_camera(height=height, width=width, device=device)
+    cfg = RasterConfig(tile_h=32, tile_w=32)
+    with torch.no_grad():
+        gt = render_model(model, cam, cfg)
+    cfg = cfg.replace(max_instances=int(
+        -(-int(gt.num_rendered) * 1.1 // 1024) * 1024))
+    view0 = apply_twist(cam.viewmatrix, torch.tensor(
+        TRACKING_XI, dtype=torch.float32, device=device))
+    tcfg = TrackingConfig(method="gn", iters=2, freeze_binning=True,
+                          bin_margin_px=2.0, line_search=False, pyramid=2,
+                          coarse_iters=3)
+    return TrackingScene(model, cam, cfg, Frame(gt.color, gt.depth[0]),
+                         view0, tcfg)

@@ -228,3 +228,58 @@ def test_backward_bit_reproducible(dev):
     assert render.launches["render_bwd"] == before["render_bwd"] + 2
     assert render.launches["segment_sum_rows"] == \
         before["segment_sum_rows"] + 2
+
+
+def jvp_inputs(tile, k_t, full, device, seed=0):
+    """A small scene's sorted table and binning, and a seeded tangent
+    table [I, per_k * K] (the same rows for the card and the CPU)."""
+    args, ckw = core_inputs(tile, device=device)
+    per_k = 6 if full else 3
+    g = torch.Generator().manual_seed(seed)
+    tans = torch.randn(args[0].shape[0], per_k * k_t, generator=g)
+    return args, tans.to(device), dict(ckw, full=full)
+
+
+def assert_tangents_close(k, p, fwd_k, fwd_p, rtol=2e-4):
+    """Tangent streams on the tiles whose n_contrib agrees on every pixel,
+    at rtol 2e-4 and atol 2e-5 + 2e-6 x the stream's largest value."""
+    tile_ok = (fwd_k.n_contrib == fwd_p.n_contrib).all(dim=1)
+    assert float((~tile_ok).float().mean()) < 0.05
+    for name in ("color", "depth", "weight", "t_final"):
+        x, y = getattr(k, name)[tile_ok], getattr(p, name)[tile_ok]
+        atol = 2e-5 + 2e-6 * float(y.abs().max())
+        torch.testing.assert_close(x, y, rtol=rtol, atol=atol, msg=name)
+    assert float(k.median.abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("k_t,full", [(6, False), (6, True), (1, False),
+                                      (1, True)])
+@pytest.mark.parametrize("tile", [(8, 16), (32, 32)])
+def test_render_jvp_matches_plain(dev, tile, k_t, full):
+    args, tans, ckw = jvp_inputs(tile, k_t, full, dev)
+    before = render.launches["render_jvp"]
+    out, tan = render.core_fwd_jvp(args[0], tans, *args[1:], **ckw)
+    torch.cuda.synchronize()
+    assert render.launches["render_jvp"] == before + 1
+    p_out, p_tan = render.core_fwd_jvp_reference(args[0], tans, *args[1:],
+                                                 **ckw)
+    assert_core_close(out, p_out)
+    assert_tangents_close(tan, p_tan, out, p_out)
+    assert float(tan.color.abs().max()) > 0
+    # the primal is render_fwd's, bit for bit
+    fwd = render.core_fwd(*args, **{k: v for k, v in ckw.items()
+                                    if k != "full"})
+    for f in out._fields:
+        assert torch.equal(getattr(out, f), getattr(fwd, f)), f
+    again = render.core_fwd_jvp(args[0], tans, *args[1:], **ckw)
+    for x, y in zip(tan, again[1]):
+        assert torch.equal(x, y)
+
+
+def test_render_jvp_rejects_other_k(dev):
+    args, tans, ckw = jvp_inputs((8, 8), 2, False, dev)
+    with pytest.raises(ValueError, match="instantiated"):
+        render.core_fwd_jvp(args[0], tans, *args[1:], **ckw)
+    with pytest.raises(ValueError):
+        render.core_fwd_jvp(args[0], tans[:, :5].contiguous(), *args[1:],
+                            **ckw)
