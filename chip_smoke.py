@@ -18,30 +18,41 @@ the tracking benchmark's frame (``bench_tracking.py``: 100,000 Gaussians,
    full-resolution dual render (identity pose, the record configuration's
    frozen margin-2 binning, the 6 twist tangents), its primal bit-equal to
    ``render_fwd``'s and its tangents also against the plain version in
-   float64; and (in phase 3, before the mapping steps) on the first
-   mapping step's render at 500k, the gradient rows also against the plain
-   version in float64;
+   float64, then with K = 1, 2, 3, 4, 5, 8 and 10 of those tangents, and
+   its culling boxes against their mirror ``render.cull_boxes``; and (in
+   phase 3, before the mapping steps) on the first mapping step's render
+   at 500k, the gradient rows also against the plain version in float64;
+   ``segment_sum_rows`` on the gradient rows (F = 12) and on the
+   uncertainty statistics (F = 2), bit-equal to its plain version on the
+   CPU;
 3. drive the main paths through the entry points a user calls, each with
    every launch counter set to 0 just before and read just after: the
    forward (``rasterize`` with precomputed colors, ``render_model`` on an
    SH-3 model from four poses; finite outputs, no overflow, the instance
-   count, one ``render_fwd`` launch per render, bit-equal repeat renders,
-   the card against the CPU path on a small scene); forward + backward
-   ``rasterize`` (one ``render_fwd``, ``render_bwd`` and
-   ``segment_sum_rows`` launch per step, finite gradients for every leaf
-   and the view matrix, bit-equal repeat backwards, the card's gradients
-   against the port's dense ``render_oracle`` and against the CPU path in
-   float64 on small scenes); five ``map_step``s at 500k, whose loss must
+   count, one ``render_fwd``, ``segment_sum`` and ``segment_sum_rows``
+   (F = 2) launch per render, bit-equal repeat renders, the card against
+   the CPU path on a small scene); forward + backward ``rasterize`` (one
+   ``render_fwd``, ``render_bwd`` and ``segment_sum`` and two
+   ``segment_sum_rows`` launches, F = 2 and 12, per step, finite gradients
+   for every leaf and the view matrix, bit-equal repeat backwards, the
+   card's gradients against the port's dense ``render_oracle`` and against
+   the CPU path in float64 on small scenes); five ``map_step``s at 500k, whose loss must
    fall; and ``track_frame`` at the record configuration, light and full
-   variant (5 ``render_jvp`` and no ``render_fwd`` launch per tracked
-   frame, no overflow in either level's frozen binning, pose error after
-   below 1e-3, bit-equal repeats), the dual render's primal bit-equal to
+   variant (5 ``render_jvp``, ``segment_sum`` and ``segment_sum_rows``
+   and no ``render_fwd`` launch per tracked frame, no overflow in either
+   level's frozen binning, pose error after below 1e-3, bit-equal
+   repeats), the dual render's primal bit-equal to
    ``rasterize``'s, the reused binning against a fresh one, and the card's
    tracking costs against the CPU path's on a small scene;
 4. time each kernel, its plain version, its bound and the one PyTorch call
-   that computes the same function, the whole forward, forward + backward,
-   a mapping step, a dual render and a tracked frame, with CUDA events,
-   and list the device time of the forward, of forward + backward and of
+   that computes the same function (``segment_sum`` and
+   ``segment_sum_rows``, the latter at 100k and at 500k with F = 12 and at
+   100k with F = 2, by device time from torch.profiler, since their launch
+   from Python outlasts them; the uncertainty sums against the sorted
+   scatter they replaced; ``render_jvp`` also with the pairs its culled
+   walk tests), the
+   whole forward, forward + backward, a mapping step, a dual render and a
+   tracked frame, with CUDA events, and list the device time of the forward, of forward + backward and of
    a tracked frame by kernel with torch.profiler.
 
 Prints the card's name and power limit, a ``kernels`` JSON line, and last
@@ -70,7 +81,10 @@ PEAK_BYTES = 3.35e12
 # Operations per (instance, pixel) pair the blend evaluates: ~16 FP32
 # operations for the exponent and the alpha tests plus one expf, counted
 # as 8 (the special-function unit runs at 1/8 of the FP32 rate); and ~20
-# more for each pair that contributes.
+# more for each pair that contributes.  The bounds count the pair test
+# only for the pairs that contribute: a pair below alpha_min changes no
+# output, and an exact test per instance and pixel patch can skip it
+# (render_jvp's culling does), so the function needs no other.
 OPS_PER_PAIR = 24
 OPS_PER_CONTRIB = 20
 # The backward walks the same pairs; for each contributing pair, besides
@@ -120,6 +134,35 @@ def time_ms(fn, iters, warmup=2):
     return t0.elapsed_time(t1) / iters
 
 
+def device_ms(fn, iters=20):
+    """Device time per call of everything ``fn`` runs on the card
+    (torch.profiler), without the host's launch overhead: a kernel of a
+    few microseconds launched from Python is timed by its host side under
+    CUDA events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(_dev_us(e) for e in _device_events(prof)) / 1e3 / iters
+
+
+def _dev_us(e):
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def _device_events(prof):
+    """The profile's device-side events (kernels, copies, fills): the
+    operator-level ones repeat their time."""
+    return [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA") and _dev_us(e) > 0]
+
+
 def compare_core(k, p, tol_rtol=1e-4, tol_atol=2e-5):
     """Kernel vs plain CoreOutputs: integer-field mismatch fractions, and
     the float fields' largest errors on the pixels whose integer fields
@@ -152,12 +195,14 @@ def compare_core(k, p, tol_rtol=1e-4, tol_atol=2e-5):
 
 
 def render_fwd_bound_ms(out, tile_start, tile_stop, pixmask):
-    """The least time the card could take for this run's blend: the pairs
-    each pixel must evaluate (a pixel whose final transmittance is >= 1e-2
-    can never have terminated, so it walked its whole segment; any other
-    pixel walked at least to its last contributor + 1), against the FP32
-    peak; and the bytes (features of the instances in segments, ranges,
-    ground truth, outputs), against HBM bandwidth."""
+    """The least time the card could take for this run's blend: the
+    operations of the pairs that contribute, against the FP32 peak; and the
+    bytes (features of the instances in segments, ranges, ground truth,
+    outputs), against HBM bandwidth.  Also logs the pairs the pixels'
+    segments hold up to their termination (a pixel whose final
+    transmittance is >= 1e-2 can never have terminated, so it walked its
+    whole segment; any other pixel walked at least to its last contributor
+    + 1): the pairs a walk without culling tests."""
     import torch
     seg = (tile_stop - tile_start).to(torch.int64)[:, None]
     walked = torch.where(out.t_final >= 1e-2, seg,
@@ -165,7 +210,7 @@ def render_fwd_bound_ms(out, tile_start, tile_stop, pixmask):
                                        seg))
     pairs = int(torch.where(pixmask, walked, torch.zeros_like(walked)).sum())
     contribs = int(out.n_valid.to(torch.int64).sum())
-    ops = pairs * OPS_PER_PAIR + contribs * OPS_PER_CONTRIB
+    ops = contribs * (OPS_PER_PAIR + OPS_PER_CONTRIB)
     t, q = out.depth.shape
     n_inst = int(seg.sum())
     nbytes = n_inst * 11 * 4 + t * 2 * 4 + t * q * 4 + t * q * 12 * 4
@@ -176,11 +221,11 @@ def render_fwd_bound_ms(out, tile_start, tile_stop, pixmask):
     return ms_bytes, "bytes", info
 
 
-def render_bwd_bound_ms(pairs, contribs, n_inst, n_tiles, q):
-    """The backward's least time: the forward's pairs and the backward's
+def render_bwd_bound_ms(contribs, n_inst, n_tiles, q):
+    """The backward's least time: the pair test and the backward's
     operations per contribution over the FP32 peak; the bytes (features,
     ranges, the per-pixel constants, the rows written) over HBM."""
-    ops = pairs * OPS_PER_PAIR + contribs * OPS_PER_CONTRIB_BWD
+    ops = contribs * (OPS_PER_PAIR + OPS_PER_CONTRIB_BWD)
     nbytes = (n_inst * 11 * 4 + n_tiles * 2 * 4 + n_tiles * q * 10 * 4
               + n_inst * 12 * 4)
     ms_ops, ms_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -190,14 +235,14 @@ def render_bwd_bound_ms(pairs, contribs, n_inst, n_tiles, q):
     return ms_bytes, "bytes", info
 
 
-def render_jvp_bound_ms(pairs, contribs, n_inst, n_tiles, q, k_t, per_k):
-    """The dual forward's least time: the forward's pairs and contributions
-    plus the tangents' operations per contribution, over the FP32 peak; the
+def render_jvp_bound_ms(contribs, n_inst, n_tiles, q, k_t, per_k):
+    """The dual forward's least time: the pair test and the forward's
+    operations per contribution plus the tangents', over the FP32 peak; the
     bytes (the feature and tangent rows of the instances in segments, the
     ranges, the ground truth, the forward's 12 rows and K x 6 tangent rows
     per pixel), over HBM."""
-    ops = pairs * OPS_PER_PAIR + contribs * (
-        OPS_PER_CONTRIB + OPS_PER_CONTRIB_JVP + k_t * OPS_PER_TANGENT[per_k])
+    ops = contribs * (OPS_PER_PAIR + OPS_PER_CONTRIB + OPS_PER_CONTRIB_JVP
+                      + k_t * OPS_PER_TANGENT[per_k])
     nbytes = (n_inst * (11 + per_k * k_t) * 4 + n_tiles * 2 * 4
               + n_tiles * q * 4 + n_tiles * q * (12 + 6 * k_t) * 4)
     ms_ops, ms_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -331,8 +376,52 @@ def check_render_kernels(tag, table, binn, gt_tiles, core_kw, check, seed=0):
     check(torch.equal(g_k.cpu(), g_cpu), f"{tag}: segment_sum_rows equals "
                                          "its plain version on the CPU bit "
                                          "for bit")
-    return dict(out_k=out_k, pix=pix, rows_k=rows_k, err_fwd=err_fwd,
-                err_bwd=err_bwd, err_rows=err_rows)
+    # and on the forward's per-instance uncertainty statistics (F = 2), as
+    # rasterize reduces them onto the Gaussians
+    stats = torch.stack([out_k.u_inst, out_k.npix_inst.float()], 1)
+    u_k = rows_sum.segment_sum_rows(stats, inv, gs, ge)
+    u_cpu = rows_sum.segment_sum_rows_reference(
+        stats.cpu(), inv.cpu(), gs.cpu(), ge.cpu())
+    torch.cuda.synchronize()
+    err_u = float((u_k.cpu() - u_cpu).abs().max())
+    check(torch.equal(u_k.cpu(), u_cpu),
+          f"{tag}: segment_sum_rows (F = 2, the uncertainty sums) equals its "
+          "plain version on the CPU bit for bit")
+    return dict(out_k=out_k, pix=pix, rows_k=rows_k, binn=binn, stats=stats,
+                err_fwd=err_fwd, err_bwd=err_bwd, err_rows=err_rows,
+                err_u=err_u)
+
+
+def segment_sum_rows_times(tag, rows, binn, card):
+    """``segment_sum_rows`` at one render's shapes: the kernel, its plain
+    version, its bound by bytes, and the one PyTorch call that computes the
+    same function, ``index_add_`` of the valid instances' rows at their
+    sorted positions onto their Gaussians (atomics: not reproducible).  The
+    kernel and that call by device time (``device_ms``; their CUDA-event
+    times, which include the host's launch, are logged beside)."""
+    import torch
+    from diff_gaussian_rasterization_tpu_torch.ops.kernels import (
+        segment_sum as rows_sum)
+    inv, gs, ge = binn.inv, binn.gauss_start, binn.gauss_stop
+    n_gauss, f = gs.shape[0], rows.shape[1]
+    kernel = lambda: rows_sum.segment_sum_rows(rows, inv, gs, ge)
+    ms, ms_ev = device_ms(kernel), time_ms(kernel, iters=50)
+    ms_plain = time_ms(lambda: rows_sum.segment_sum_rows_reference(
+        rows, inv, gs, ge), iters=20)
+    n_valid = int(binn.valid.sum())
+    ids, valid_rows = binn.gauss_id[:n_valid], rows[:n_valid]
+    lib = lambda: torch.zeros((n_gauss, f), device=rows.device).index_add_(
+        0, ids, valid_rows)
+    ms_lib, ms_lib_ev = device_ms(lib), time_ms(lib, iters=50)
+    m_runs = int((ge - gs).to(torch.int64).sum())
+    nbytes = m_runs * (f * 4 + 4) + n_gauss * (8 + f * 4)
+    bound = nbytes / PEAK_BYTES * 1e3
+    log(f"[time] {card}: segment_sum_rows ({tag}) kernel {ms:.4f} ms device "
+        f"time ({ms_ev:.4f} ms by CUDA events) on {m_runs} rows / {n_gauss} "
+        f"Gaussians (bound {bound:.4f} ms by bytes, {nbytes} bytes), plain "
+        f"{ms_plain:.4f} ms, index_add_ of the {n_valid} valid rows at sorted "
+        f"positions {ms_lib:.4f} ms device time ({ms_lib_ev:.4f} ms)")
+    return dict(ms=ms, plain_ms=ms_plain, bound_ms=bound, library_ms=ms_lib)
 
 
 def loss_of(out, wc):
@@ -386,14 +475,9 @@ def profile_breakdown(fn, n=3, top=12):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    dev_us = lambda e: getattr(e, "self_device_time_total",
-                               getattr(e, "self_cuda_time_total", 0.0))
-    # kernel-level events only: the operator-level ones repeat their time
-    rows = sorted((e for e in prof.key_averages()
-                   if str(e.device_type).endswith("CUDA") and dev_us(e) > 0),
-                  key=dev_us, reverse=True)
-    busy_ms = sum(dev_us(e) for e in rows) / 1e3
-    lines = [f"{dev_us(e) / 1e3 / n:9.4f} ms/call  x{e.count // n:<4d} "
+    rows = sorted(_device_events(prof), key=_dev_us, reverse=True)
+    busy_ms = sum(_dev_us(e) for e in rows) / 1e3
+    lines = [f"{_dev_us(e) / 1e3 / n:9.4f} ms/call  x{e.count // n:<4d} "
              f"{e.key[:90]}" for e in rows[:top]]
     return wall_ms / n, busy_ms / n, lines
 
@@ -480,6 +564,24 @@ def check_jvp_kernel(tag, table, tans, binn, gt_tiles, core_kw, full,
     return dict(out_k=out_k, err=max(err_p, err_t))
 
 
+def boxes_agree(k, m, ulps=8):
+    """Culling boxes [N, 4] (x0, x1, y0, y1) of the kernel against the
+    mirror's: the same infinities, and finite edges within ``ulps`` float32
+    ulps of the larger edge of their axis (the kernel's logf and the CPU's
+    log may each round differently).  Returns (ok, largest difference in
+    those ulps)."""
+    import torch
+    axis = torch.stack([m[:, 0:2].abs().amax(1), m[:, 2:4].abs().amax(1)], 1)
+    unit = axis.repeat_interleave(2, 1) * 2.0 ** -23
+    fin = torch.isfinite(m)
+    if not (torch.equal(torch.isfinite(k), fin)
+            and torch.equal(k[~fin], m[~fin])):
+        return False, float("inf")
+    diff = ((k - m).abs()[fin] / unit[fin].clamp_min(2.0 ** -126))
+    worst = float(diff.max()) if diff.numel() else 0.0
+    return worst <= ulps, worst
+
+
 def twist_basis(view):
     """[6, 4, 4]: the view matrix's derivatives along the twist basis."""
     import torch
@@ -493,11 +595,13 @@ def tracking_kernels(dev, check):
     """Phase 2 for the tracking path: ``render_jvp`` (light and full)
     against its plain version on the full-resolution dual render of the
     tracking frame, at the identity pose with the record configuration's
-    frozen binning and the 6 twist tangents."""
+    frozen binning and the 6 twist tangents, and with K = 1, 2, 3, 4, 5, 8
+    and 10 of them; and the kernel's culling boxes against their mirror."""
     import torch
     from diff_gaussian_rasterization_tpu_torch.models.slam import (
         frozen_budget)
     from diff_gaussian_rasterization_tpu_torch.ops import rasterize as ras
+    from diff_gaussian_rasterization_tpu_torch.ops.kernels import render
     from diff_gaussian_rasterization_tpu_torch.scenes import tracking_frame
     ts = tracking_frame(device=dev)
     means = ts.model.means3D.detach()
@@ -524,6 +628,29 @@ def tracking_kernels(dev, check):
                                gt_tiles, core_kw, variant == "full", check)
         variants[variant] = dict(res, cfg=vcfg, table=table, tans=tans,
                                  gt_tiles=gt_tiles)
+        # other K on the same frame: tangent tables of subsets and repeats
+        # of the twist directions (K = 8 and 10 take two launches, the
+        # second of 2 and of 4 columns)
+        per_k = 6 if variant == "full" else 3
+        by_k = tans.reshape(tans.shape[0], 6, per_k)
+        for pick in ([5], [0, 1], [0, 1, 2], [0, 1, 2, 3], [0, 1, 2, 3, 4],
+                     [0, 1, 2, 3, 4, 5, 0, 3],
+                     [0, 1, 2, 3, 4, 5, 0, 1, 2, 3]):
+            sub = by_k[:, pick].reshape(tans.shape[0], -1).contiguous()
+            check_jvp_kernel(f"tracking {variant} K={len(pick)}", table, sub,
+                             binn, gt_tiles, core_kw, variant == "full",
+                             check)
+    # the kernel's own culling boxes on this frame's table against their
+    # mirror, which the CPU tests hold to the blend's alpha
+    table = variants["light"]["table"]
+    box_k = render.cull_boxes(table, ts.cfg.alpha_min)
+    box_m = render.cull_boxes(table.cpu(), ts.cfg.alpha_min)
+    agree, worst = boxes_agree(box_k.cpu(), box_m)
+    log(f"[kernel] tracking: render_jvp's culling boxes of {table.shape[0]} "
+        f"rows against render.cull_boxes on the CPU: largest difference "
+        f"{worst} float32 ulps of the axis's larger edge")
+    check(agree, "render_jvp's culling boxes equal their CPU mirror (the same "
+                 "infinities, finite edges within 8 ulps)")
     return dict(ts=ts, means=means, kwm=kwm, binn=binn, tw=tw,
                 core_kw=core_kw, variants=variants)
 
@@ -546,8 +673,8 @@ def tracking_path(st, dev, check):
     eye = ts.camera.viewmatrix
     err_before = float((ts.view0 - eye).abs().max())
     n_dual = ts.tcfg.coarse_iters + ts.tcfg.iters
-    want = dict(render_fwd=0, segment_sum=2 * n_dual, render_bwd=0,
-                segment_sum_rows=0, render_jvp=n_dual)
+    want = dict(render_fwd=0, segment_sum=n_dual, render_bwd=0,
+                segment_sum_rows=n_dual, render_jvp=n_dual)
     st["counts"], st["pose_err"] = {}, {}
     for variant in ("light", "full"):
         vcfg = st["variants"][variant]["cfg"]
@@ -556,7 +683,7 @@ def tracking_path(st, dev, check):
         v1, c1, cs1 = track_frame(ts.model, ts.view0, ts.frame, vcfg,
                                   ts.tcfg, ts.camera, binnings=binns)
         torch.cuda.synchronize()
-        counts = dict(render.launches)
+        counts, rows = dict(render.launches), dict(render.row_launches)
         v2, _, _ = track_frame(ts.model, ts.view0, ts.frame, vcfg, ts.tcfg,
                                ts.camera)
         err_after = float((v1 - eye).abs().max())
@@ -567,8 +694,9 @@ def tracking_path(st, dev, check):
             f"{err_before}, pose_err_after {err_after}; frozen binnings "
             f"{[int(b.num_rendered) for b in binns]} instances, overflow "
             f"{[bool(b.overflow) for b in binns]}")
-        check(counts == want, f"track {variant}: launches per tracked frame "
-                              f"{want}")
+        check(counts == want and rows == {2: n_dual},
+              f"track {variant}: launches per tracked frame {want}, every "
+              "segment_sum_rows at F = 2")
         check(len(binns) == ts.tcfg.pyramid
               and not any(bool(b.overflow) for b in binns),
               f"track {variant}: no overflow in either level's frozen "
@@ -654,12 +782,20 @@ def tracking_times(st, dev, card):
         _, _, finfo = render_fwd_bound_ms(v["out_k"], start, stop, pixmask)
         n_seg = int((stop - start).sum())
         bound, by, binfo = render_jvp_bound_ms(
-            finfo["pairs"], finfo["contributions"], n_seg, n_tiles, q, k_t,
-            6 if full else 3)
+            finfo["contributions"], n_seg, n_tiles, q, k_t, 6 if full else 3)
+        # the pairs the culled walk tests, against the pairs each pixel's
+        # segment holds up to its termination and the contributions (the
+        # bound's count)
+        tested = torch.zeros(1, dtype=torch.int64, device=dev)
+        render.launch_render_jvp(table, tans, start, stop, gt_tiles, out_f,
+                                 out_i, out_t, full=full, pairs=tested,
+                                 **core_kw)
         log(f"[time] {card}: render_jvp ({variant}, K={k_t}) kernel "
             f"{ms:.4f} ms (bound {bound:.4f} ms by {by}: "
             f"{json.dumps(dict(finfo, **binfo))}), plain version "
-            f"{ms_plain:.3f} ms")
+            f"{ms_plain:.3f} ms; pairs tested {int(tested)} of "
+            f"{finfo['pairs']} walked, for {finfo['contributions']} "
+            "contributions")
         entries.append(dict(
             name="render_jvp" if variant == "light" else "render_jvp_full",
             route="cuda",
@@ -822,12 +958,16 @@ def main():
                 gt_depth=kw["gt_depth"]))
             renders += 1
     torch.cuda.synchronize()
-    counts = dict(render.launches)
-    log(f"[main] {renders} renders, launches {counts}")
+    counts, rows_fwd = dict(render.launches), dict(render.row_launches)
+    log(f"[main] {renders} renders, launches {counts}, segment_sum_rows by "
+        f"row width {rows_fwd}")
     check(counts["render_fwd"] == renders,
           "one render_fwd launch per render on the main path")
-    check(counts["segment_sum"] == 2 * renders,
-          "two segment_sum launches per render on the main path")
+    check(counts["segment_sum"] == renders
+          and counts["segment_sum_rows"] == renders
+          and rows_fwd == {2: renders},
+          "one segment_sum and one segment_sum_rows (F = 2) launch per render "
+          "on the main path")
     for i, o in enumerate([out_a] + model_outs):
         finite = all(bool(torch.isfinite(getattr(o, f).float()).all())
                      for f in ("color", "depth", "depth_median", "depth_var",
@@ -871,12 +1011,16 @@ def main():
     g_a = grads_of(bench_render, means, cam, cfg, kw, wc)
     g_b = grads_of(bench_render, means, cam, cfg, kw, wc)
     torch.cuda.synchronize()
-    counts_fb = dict(render.launches)
-    log(f"[main] 2 forward + backward steps, launches {counts_fb}")
+    counts_fb, rows_fb = dict(render.launches), dict(render.row_launches)
+    log(f"[main] 2 forward + backward steps, launches {counts_fb}, "
+        f"segment_sum_rows by row width {rows_fb}")
     check(all(counts_fb[k] == 2 for k in ("render_fwd", "render_bwd",
-                                           "segment_sum_rows")),
-          "one render_fwd, render_bwd and segment_sum_rows launch per "
-          "forward + backward step")
+                                           "segment_sum"))
+          and counts_fb["segment_sum_rows"] == 4
+          and rows_fb == {2: 2, 12: 2},
+          "one render_fwd, render_bwd and segment_sum and two "
+          "segment_sum_rows (F = 2 and 12) launches per forward + backward "
+          "step")
     check(all(bool(torch.isfinite(v).all()) and float(v.abs().max()) > 0
               for v in g_a.values()),
           f"finite, non-zero gradients for {sorted(g_a)}")
@@ -942,7 +1086,7 @@ def main():
         mapped = check_render_kernels(
             "500k", mfeat[mbinn.gauss_id].contiguous(), mbinn, mgt, core_kw,
             check, seed=1)
-    del mbinn, mfeat, mgt
+    del mfeat, mgt
     wts = torch.ones(1, device=dev)
     opt = make_map_optimizer(model, mcfg)
     dstate = DensifyState.zero(model.means3D.shape[0], device=dev)
@@ -953,13 +1097,16 @@ def main():
     for _ in range(5):
         loss, dstate, _ = map_step(model, opt, dstate, *map_args)
         losses.append(float(loss))
-    counts_map = dict(render.launches)
+    counts_map, rows_map = dict(render.launches), dict(render.row_launches)
     log(f"[map] {int(probe.num_rendered)} instances (budget {map_inst}); "
-        f"losses {losses}; launches {counts_map}")
+        f"losses {losses}; launches {counts_map}, segment_sum_rows by row "
+        f"width {rows_map}")
     check(all(counts_map[k] == 5 for k in ("render_fwd", "render_bwd",
-                                           "segment_sum_rows")),
-          "one render_fwd, render_bwd and segment_sum_rows launch per "
-          "map_step")
+                                           "segment_sum"))
+          and counts_map["segment_sum_rows"] == 10
+          and rows_map == {2: 5, 12: 5},
+          "one render_fwd, render_bwd and segment_sum and two "
+          "segment_sum_rows (F = 2 and 12) launches per map_step")
     check(losses[-1] < losses[0], "the loss after five map steps is below "
                                   "step 0's")
     check(all(bool(torch.isfinite(getattr(model, f)).all())
@@ -980,16 +1127,18 @@ def main():
         out_k, binn.tile_start, binn.tile_stop,
         render.pixel_coords(gt_tiles.shape[0], tiles_x, cfg.tile_h,
                             cfg.tile_w, h, w, dev)[2])
-    ms_seg = time_ms(lambda: render.segment_sum(seg_vals, seg_ones, bounds),
-                     iters=50)
+    seg_kernel = lambda: render.segment_sum(seg_vals, seg_ones, bounds)
+    ms_seg, ms_seg_ev = device_ms(seg_kernel), time_ms(seg_kernel, iters=50)
     ms_seg_plain = time_ms(lambda: render.segment_sum_reference(
         seg_vals, seg_ones, bounds), iters=20)
     seg_ids = torch.repeat_interleave(
         torch.arange(table.shape[0], device=dev),
         (bounds[1:] - bounds[:-1]).to(torch.int64))
     lib_in = seg_vals[:seg_ids.shape[0]]
-    ms_seg_lib = time_ms(lambda: torch.zeros(
-        table.shape[0], device=dev).index_add_(0, seg_ids, lib_in), iters=50)
+    seg_lib = lambda: torch.zeros(table.shape[0], device=dev).index_add_(
+        0, seg_ids, lib_in)
+    ms_seg_lib, ms_seg_lib_ev = device_ms(seg_lib), time_ms(seg_lib,
+                                                            iters=50)
     n_vals, n_seg = seg_vals.shape[0], bounds.shape[0] - 1
     bound_seg = (n_vals * 8 + (n_seg + 1) * 4 + n_seg * 8) / PEAK_BYTES * 1e3
     with torch.no_grad():
@@ -1000,15 +1149,16 @@ def main():
     log(f"[time] {card}: render_fwd kernel {ms_fwd:.4f} ms "
         f"(bound {bound_fwd:.4f} ms by {by_fwd}: {json.dumps(binfo)}), "
         f"plain version {ms_plain:.3f} ms")
-    log(f"[time] {card}: segment_sum kernel {ms_seg:.4f} ms on "
-        f"{n_vals} values / {n_seg} segments (bound {bound_seg:.4f} ms by "
-        f"bytes), plain {ms_seg_plain:.4f} ms, index_add_ {ms_seg_lib:.4f} ms")
+    log(f"[time] {card}: segment_sum kernel {ms_seg:.4f} ms device time "
+        f"({ms_seg_ev:.4f} ms by CUDA events) on {n_vals} values / {n_seg} "
+        f"segments (bound {bound_seg:.4f} ms by bytes), plain "
+        f"{ms_seg_plain:.4f} ms, index_add_ {ms_seg_lib:.4f} ms device time "
+        f"({ms_seg_lib_ev:.4f} ms)")
     log(f"[time] {card}: whole forward rasterize {ms_ras:.3f} ms, "
         f"preprocess + binning {ms_front:.3f} ms")
 
     rows_buf = torch.zeros_like(rows_k)
     start, stop = binn.tile_start, binn.tile_stop
-    inv, gs, ge = binn.inv, binn.gauss_start, binn.gauss_stop
     n_tiles, q = gt_tiles.shape
     ms_bwd = time_ms(lambda: render.launch_render_bwd(
         table, start, stop, pix, rows_buf, **core_kw), iters=20)
@@ -1016,26 +1166,33 @@ def main():
         table, start, stop, pix, **core_kw), iters=2, warmup=1)
     n_seg_inst = int((stop - start).sum())
     bound_bwd, by_bwd, bbinfo = render_bwd_bound_ms(
-        binfo["pairs"], binfo["contributions"], n_seg_inst, n_tiles, q)
-    ms_rows = time_ms(lambda: rows_sum.segment_sum_rows(rows_k, inv, gs, ge),
-                      iters=50)
-    ms_rows_plain = time_ms(lambda: rows_sum.segment_sum_rows_reference(
-        rows_k, inv, gs, ge), iters=20)
-    run_g, run_j = rows_sum.runs(gs, ge)
-    gathered = rows_k[inv.to(torch.int64)[run_j]]
-    n_gauss = gs.shape[0]
-    ms_rows_lib = time_ms(lambda: torch.zeros(
-        (n_gauss, 12), device=dev).index_add_(0, run_g, gathered), iters=50)
-    m_runs = run_j.shape[0]
-    bound_rows = (m_runs * 12 * 4 + m_runs * 4 + n_gauss * 8
-                  + n_gauss * 12 * 4) / PEAK_BYTES * 1e3
+        binfo["contributions"], n_seg_inst, n_tiles, q)
+    rows_t = {"100k": segment_sum_rows_times("100k", rows_k, binn, card),
+              "500k": segment_sum_rows_times(
+                  "500k", mapped["rows_k"], mapped["binn"], card),
+              "f2": segment_sum_rows_times(
+                  "100k, F = 2", bench["stats"], binn, card)}
+    # the uncertainty sums of one render as rasterize takes them (the
+    # two columns stacked, one segment_sum_rows) against the path it
+    # replaced (a stable sort of the instances' Gaussian ids, a
+    # searchsorted and a segment_sum): host and device together by CUDA
+    # events, and device time
+    keys = torch.where(binn.valid, binn.gauss_id,
+                       torch.full_like(binn.gauss_id, -1))
+    n_gauss = binn.gauss_start.shape[0]
+    u_old = lambda: render.scatter_sum(keys, out_k.u_inst, out_k.npix_inst,
+                                       n_gauss)
+    u_new = lambda: rows_sum.segment_sum_rows(
+        torch.stack([out_k.u_inst, out_k.npix_inst.to(torch.float32)], 1),
+        binn.inv, binn.gauss_start, binn.gauss_stop)
+    log(f"[time] {card}: uncertainty sums of one 100k render: "
+        f"segment_sum_rows {time_ms(u_new, iters=50):.4f} ms by CUDA events "
+        f"({device_ms(u_new):.4f} ms device time), the sorted scatter it "
+        f"replaced {time_ms(u_old, iters=50):.4f} ms "
+        f"({device_ms(u_old):.4f} ms device time)")
     log(f"[time] {card}: render_bwd kernel {ms_bwd:.4f} ms (bound "
         f"{bound_bwd:.4f} ms by {by_bwd}: {json.dumps(bbinfo)}), plain "
         f"version {ms_bwd_plain:.3f} ms")
-    log(f"[time] {card}: segment_sum_rows kernel {ms_rows:.4f} ms on "
-        f"{m_runs} rows / {n_gauss} Gaussians (bound {bound_rows:.4f} ms by "
-        f"bytes), plain {ms_rows_plain:.4f} ms, index_add_ of the gathered "
-        f"rows {ms_rows_lib:.4f} ms")
     fwd_bwd = lambda: grads_of(bench_render, means, cam, cfg, kw, wc)
     ms_fb = time_ms(fwd_bwd, iters=10)
     ms_map = time_ms(lambda: map_step(model, opt, dstate, *map_args),
@@ -1067,8 +1224,9 @@ def main():
     jvp_entries = tracking_times(trk, dev, card)
 
     # the largest errors over both scales' comparisons
-    err_fwd, err_bwd, err_rows = (max(bench[k], mapped[k]) for k in
-                                  ("err_fwd", "err_bwd", "err_rows"))
+    err_fwd, err_bwd, err_rows, err_u = (
+        max(bench[k], mapped[k])
+        for k in ("err_fwd", "err_bwd", "err_rows", "err_u"))
     kernels = [
         dict(name="render_fwd", route="cuda",
              source="diff_gaussian_rasterization_tpu_torch/ops/kernels/csrc/"
@@ -1094,15 +1252,21 @@ def main():
              launches=counts_fb["render_bwd"], max_abs_err=err_bwd,
              ms=ms_bwd, plain_ms=ms_bwd_plain, bound_ms=bound_bwd,
              bound_by=by_bwd, library_ms=None),
-        dict(name="segment_sum_rows", route="cuda",
-             source="diff_gaussian_rasterization_tpu_torch/ops/kernels/csrc/"
-                    "render_bwd.cu",
-             replaces="diff_gaussian_rasterization_tpu/ops/kernels/"
-                      "segment_sum.py:43",
-             launches=counts_fb["segment_sum_rows"], max_abs_err=err_rows,
-             ms=ms_rows, plain_ms=ms_rows_plain, bound_ms=bound_rows,
-             bound_by="bytes", library_ms=ms_rows_lib),
-    ] + jvp_entries
+    ] + [dict(name=name, route="cuda",
+              source="diff_gaussian_rasterization_tpu_torch/ops/kernels/"
+                     "csrc/render_bwd.cu",
+              replaces="diff_gaussian_rasterization_tpu/ops/kernels/"
+                       "segment_sum.py:43",
+              launches=n, max_abs_err=err, bound_by="bytes", **rows_t[tag])
+         # each entry's launches are those of its row width on its path:
+         # F = 12 in the forward + backward steps and the map steps, F = 2
+         # in the renders of the forward
+         for name, tag, n, err in (
+             ("segment_sum_rows", "100k", rows_fb.get(12, 0), err_rows),
+             ("segment_sum_rows_500k", "500k", rows_map.get(12, 0),
+              err_rows),
+             ("segment_sum_rows_f2", "f2", rows_fwd.get(2, 0), err_u))
+         ] + jvp_entries
     log(json.dumps({"kernels": kernels}))
     if failures:
         log(f"FAILED: {failures}")

@@ -46,7 +46,8 @@ SIGNATURES = {
     },
     "render_jvp": {
         "render_jvp": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                       _I, _F, _F, _F, _I, _I, _P],
+                       _I, _F, _F, _F, _I, _I, _I, _I, _I, _P, _P],
+        "render_jvp_cull_boxes": [_P, _I, _F, _P, _P],
     },
 }
 

@@ -40,13 +40,13 @@
 // (and culled instances, and the budget's unused tail) keep zero rows.
 // want_med / want_var = 0 skip those sums and leave their columns zero.
 //
-// What bounds it on an H100.  As the forward: the (instance, pixel) pairs
-// walked, now with ~50 FP32 operations per contributing pair, against
-// 67 TFLOP/s; the bytes (table, pixel constants, rows) are ~70 MB at the
-// bench scale, ~20 us.  So operations bound it.  This simple design adds
-// the per-instance warp reductions (60 shuffles per warp, skipped by a
-// warp vote when no lane's pixel touched the instance) and leaves register
-// blocking and cp.async staging for later.
+// What bounds it on an H100.  The least work is the pair test and ~58 FP32
+// operations per contributing pair, ~1.9 G at the bench scale, ~29 us at
+// 67 TFLOP/s; the bytes (table, pixel constants, rows) are ~53 MB, ~16 us.
+// So operations bound it.  This simple design tests every pair of the
+// forward's walk, and adds the per-instance warp reductions (60 shuffles
+// per warp, skipped by a warp vote when no lane's pixel touched the
+// instance), and leaves register blocking and cp.async staging for later.
 //
 // Numerics.  Built without --use_fast_math and with --fmad=false, like the
 // forward; the plain version (core_bwd_reference) sums over pixels and
@@ -55,9 +55,27 @@
 // instance than the kernel's sequential product, on the rows of that tile.
 //
 // segment_sum_rows: out[p, c] = sum of rows[inv[j], c] over the pre-sort
-// run j in [gauss_start[p], gauss_stop[p]), in order of j, one thread per
-// (Gaussian, column).  Bound by bytes: each row read once.  Bit-equal to
+// run j in [gauss_start[p], gauss_stop[p]), in order of j.  Bit-equal to
 // the plain version's index_add_ on the CPU, which adds in the same order.
+// Bound by bytes: each row, inv[j] and each run's bounds read once, each
+// output row written once (17.8 MB at the bench scene, 5.3 us at
+// 3.35 TB/s).  A loop of dependent loads (inv[j], then the row) per
+// Gaussian is bound by latency instead, a warp of such loops by its
+// longest run (48 entries at the bench scene, 2.3 on average), and its
+// scattered reads of inv waste most of each sector.  So one warp takes
+// 32 consecutive Gaussians, reads their bounds once, and walks the span of
+// their (consecutive) runs 32 entries at a time with coalesced reads of
+// inv: the loads of a chunk are all in flight together, and the next
+// chunk's load while this one is summed; each lane then adds its own
+// run's rows, parked in shared memory, in run order.  A run of length L
+// costs ~L / 32 round trips.  A 12-float row is 48 bytes, so with a
+// 16-byte aligned buffer every row is read, and every output row written,
+// as three 16-byte vectors (F = 2, the per-Gaussian uncertainty sums, as
+// one 8-byte vector); any other F, or unaligned buffers, take the plain
+// loop of one thread per (Gaussian, column).
+
+#include <climits>
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
@@ -220,12 +238,113 @@ render_bwd_kernel(const float* __restrict__ feat,
   }
 }
 
-__global__ void segment_sum_rows_kernel(const float* __restrict__ rows,
-                                        const int* __restrict__ inv,
-                                        const int* __restrict__ gauss_start,
-                                        const int* __restrict__ gauss_stop,
-                                        float* __restrict__ out, int p,
-                                        int f) {
+constexpr int kSumWarps = 8;  // warps a block, 32 Gaussians each
+
+// Row i of a [*, F] buffer (zeros for i < 0) into registers: 16-byte loads
+// when F is a multiple of 4, else 8-byte ones (the caller checked the
+// alignment).
+template <int F>
+__device__ __forceinline__ void load_row(const float* __restrict__ rows,
+                                         int i, float (&v)[F]) {
+  static_assert(F % 2 == 0, "rows of an even number of floats");
+  if (i < 0) {
+#pragma unroll
+    for (int c = 0; c < F; ++c) v[c] = 0.f;
+    return;
+  }
+  const float* r = rows + (size_t)i * F;
+  if constexpr (F % 4 == 0) {
+#pragma unroll
+    for (int c = 0; c < F; c += 4) {
+      const float4 x = __ldg(reinterpret_cast<const float4*>(r + c));
+      v[c] = x.x;
+      v[c + 1] = x.y;
+      v[c + 2] = x.z;
+      v[c + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < F; c += 2) {
+      const float2 x = __ldg(reinterpret_cast<const float2*>(r + c));
+      v[c] = x.x;
+      v[c + 1] = x.y;
+    }
+  }
+}
+
+// Store F floats at dst (aligned as load_row's source), as vectors.
+template <int F>
+__device__ __forceinline__ void store_row(float* dst, const float (&v)[F]) {
+  if constexpr (F % 4 == 0) {
+#pragma unroll
+    for (int c = 0; c < F; c += 4)
+      *reinterpret_cast<float4*>(dst + c) =
+          make_float4(v[c], v[c + 1], v[c + 2], v[c + 3]);
+  } else {
+#pragma unroll
+    for (int c = 0; c < F; c += 2)
+      *reinterpret_cast<float2*>(dst + c) = make_float2(v[c], v[c + 1]);
+  }
+}
+
+// One warp per 32 consecutive Gaussians.  Their runs are consecutive in
+// the pre-sort order, so the warp walks the span [lo, hi) of its lanes'
+// runs 32 entries at a time: each lane loads one inv[j] and that row into
+// registers, parks the row in the warp's slice of shared memory, and every
+// lane adds, in order, the parked rows that belong to its own run.  The
+// next chunk's rows (and the chunk after's indices) load while the
+// current one is summed.
+template <int F>
+__global__ void __launch_bounds__(kSumWarps * 32)
+segment_sum_rows_kernel(const float* __restrict__ rows,
+                        const int* __restrict__ inv,
+                        const int* __restrict__ gauss_start,
+                        const int* __restrict__ gauss_stop,
+                        float* __restrict__ out, int p) {
+  __shared__ __align__(16) float s_rows[kSumWarps][32 * F];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = (blockIdx.x * kSumWarps + warp) * 32 + lane;
+  int start = 0, stop = 0;
+  if (g < p) {
+    start = gauss_start[g];
+    stop = gauss_stop[g];
+  }
+  const bool some = start < stop;
+  const int lo = __reduce_min_sync(kFull, some ? start : INT_MAX);
+  const int hi = __reduce_max_sync(kFull, some ? stop : INT_MIN);
+  float* parked = s_rows[warp];
+  float acc[F];
+#pragma unroll
+  for (int c = 0; c < F; ++c) acc[c] = 0.f;
+  if (lo < hi) {
+    float v[F];
+    load_row<F>(rows, lo + lane < hi ? __ldg(inv + lo + lane) : -1, v);
+    int next = lo + 32 + lane < hi ? __ldg(inv + lo + 32 + lane) : -1;
+    for (int j0 = lo; j0 < hi; j0 += 32) {
+      store_row<F>(parked + lane * F, v);
+      __syncwarp();
+      if (j0 + 32 < hi) {
+        load_row<F>(rows, next, v);
+        next = j0 + 64 + lane < hi ? __ldg(inv + j0 + 64 + lane) : -1;
+      }
+      const int u1 = min(stop - j0, 32);
+      for (int u = max(start - j0, 0); u < u1; ++u) {
+#pragma unroll
+        for (int c = 0; c < F; ++c) acc[c] += parked[u * F + c];
+      }
+      __syncwarp();
+    }
+  }
+  if (g < p) store_row<F>(out + (size_t)g * F, acc);
+}
+
+// Any other F: one thread per (Gaussian, column), in run order.
+__global__ void segment_sum_rows_any_kernel(const float* __restrict__ rows,
+                                            const int* __restrict__ inv,
+                                            const int* __restrict__ gauss_start,
+                                            const int* __restrict__ gauss_stop,
+                                            float* __restrict__ out, int p,
+                                            int f) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (long long)p * f) return;
   const int g = (int)(i / f);
@@ -234,6 +353,15 @@ __global__ void segment_sum_rows_kernel(const float* __restrict__ rows,
   for (int j = gauss_start[g]; j < gauss_stop[g]; ++j)
     acc += rows[(size_t)inv[j] * f + c];
   out[i] = acc;
+}
+
+template <int F>
+void launch_rows(const float* rows, const int* inv, const int* gauss_start,
+                 const int* gauss_stop, float* out, int p, cudaStream_t s) {
+  constexpr int per_block = kSumWarps * 32;
+  segment_sum_rows_kernel<F><<<(p + per_block - 1) / per_block, per_block,
+                               0, s>>>(rows, inv, gauss_start, gauss_stop,
+                                       out, p);
 }
 
 }  // namespace
@@ -268,11 +396,19 @@ extern "C" int segment_sum_rows(const float* rows, const int* inv,
                                 const int* gauss_start, const int* gauss_stop,
                                 float* out, int p, int f, void* stream) {
   if (p <= 0 || f <= 0) return 0;
-  const int threads = 256;
-  const long long total = (long long)p * f;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  segment_sum_rows_kernel<<<blocks, threads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      rows, inv, gauss_start, gauss_stop, out, p, f);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uintptr_t at =
+      reinterpret_cast<uintptr_t>(rows) | reinterpret_cast<uintptr_t>(out);
+  if (f == 12 && (at & 15) == 0) {
+    launch_rows<12>(rows, inv, gauss_start, gauss_stop, out, p, s);
+  } else if (f == 2 && (at & 7) == 0) {
+    launch_rows<2>(rows, inv, gauss_start, gauss_stop, out, p, s);
+  } else {
+    const int threads = 256;
+    const long long total = (long long)p * f;
+    const unsigned blocks = (unsigned)((total + threads - 1) / threads);
+    segment_sum_rows_any_kernel<<<blocks, threads, 0, s>>>(
+        rows, inv, gauss_start, gauss_stop, out, p, f);
+  }
   return static_cast<int>(cudaGetLastError());
 }

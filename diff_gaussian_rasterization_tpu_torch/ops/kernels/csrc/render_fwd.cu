@@ -19,13 +19,14 @@
 // n_valid, midx (global position in the sorted stream, or -1).  Pixels past
 // the image edge keep the initial state.
 //
-// What bounds it on an H100.  The work is the (instance, pixel) pairs a
-// pixel evaluates before it terminates: about 20 FP32 operations and one
-// expf each, against 67 TFLOP/s of FP32.  The bytes are small: at the
-// bench scale (1200x680, 100k Gaussians, ~234k instances) the features,
-// ground-truth depth and outputs are about 55 MB, about 16 us at
-// 3.35 TB/s.  So it is bound by operations, and by how many of the pairs
-// early termination lets it skip.
+// What bounds it on an H100.  The least work is the pairs that contribute
+// (a pair below alpha_min changes nothing, and an exact test can skip it):
+// about 36 FP32 operations and one expf each, ~1.0 G operations at the
+// bench scale (1200x680, 100k Gaussians, ~234k instances), about 16 us at
+// 67 TFLOP/s of FP32; the features, ground-truth depth and outputs are
+// about 55 MB, also about 16 us at 3.35 TB/s.  This design tests every
+// pair a pixel walks before it terminates, about four times the
+// contributions, so those pair tests bound it.
 //
 // What this simple design does about that.  256 threads per block, each
 // owning up to four pixels of the tile in registers (a 32x32 tile is 1024

@@ -23,7 +23,10 @@ tangents per pixel (:class:`PoseTangents`), from a sorted tangent table
 port of ``render_pallas._jvp_kernel``: the kernel ``csrc/render_jvp.cu`` on
 CUDA tensors (its primal outputs bit-equal to ``render_fwd``'s), and
 ``core_fwd_jvp_reference`` (the counterpart of
-``tile_xla.core_fwd_jvp_xla``) on CPU tensors.
+``tile_xla.core_fwd_jvp_xla``) on CPU tensors.  It takes any number K of
+tangents: the kernel carries at most ``JVP_GROUP`` a launch, so a larger
+table is rendered in groups of columns, one launch each, the primal
+written by the first.
 
 The per-instance median-crossing statistics ``u_inst``/``npix_inst`` are a
 scatter of per-pixel ``(midx, ucross)``.  On the card that reduction is a
@@ -56,17 +59,23 @@ ROW_COLUMNS = ("x", "y", "A", "B", "C", "opacity", "r", "g", "b", "depth",
 ROW = len(ROW_COLUMNS)
 TILE_BATCH = 64  # tiles the plain versions blend at once
 
-# tangent counts the render_jvp kernel is instantiated for (the JAX kernel
-# takes any static K; 6 is the twist basis)
-JVP_K = (1, 6)
+JVP_GROUP = 6  # tangents one render_jvp launch carries (the twist basis)
+# render_jvp.cu's cull_box: relative slack against float32 rounding, and
+# the absolute widening in pixels
+CULL_REL = 2e-5
+CULL_ABS = 1e-2
 
 launches = {"render_fwd": 0, "segment_sum": 0, "render_bwd": 0,
             "segment_sum_rows": 0, "render_jvp": 0}
+# segment_sum_rows launches by row width F (2: the uncertainty sums, 12:
+# the gradient rows), counted beside launches["segment_sum_rows"]
+row_launches: dict = {}
 
 
 def reset_launches():
     for k in launches:
         launches[k] = 0
+    row_launches.clear()
 
 
 class CoreOutputs(NamedTuple):
@@ -477,26 +486,87 @@ def core_fwd_jvp_reference(table, tans, tile_start, tile_stop, gt_tiles, *,
             PoseTangents(*cat[10:]))
 
 
-def launch_render_jvp(table, tans, tile_start, tile_stop, gt_tiles, out_f,
-                      out_i, out_t, *, cfg: RasterConfig, tiles_x: int,
-                      height: int, width: int, full: bool = False):
-    """One launch of the ``render_jvp`` kernel into preallocated ``out_f``
-    [T, 9, Q], ``out_i`` [T, 3, Q] (both as ``render_fwd`` writes them)
-    and ``out_t`` [T, K, 6, Q] (inputs checked by :func:`core_fwd_jvp`)."""
+def cull_extent(conic, opacity, alpha_min: float):
+    """The half-extents (rx, ry) [N] of ``render_jvp.cu``'s ``cull_box``, in
+    its float32 expressions: outside ``|dx| <= rx, |dy| <= ry`` a splat's
+    alpha is below ``alpha_min`` at every pixel.  ``-inf`` (an empty box)
+    where the opacity is below ``alpha_min``, ``inf`` where the conic is
+    not positive definite.  The kernel skips the pairs outside the box;
+    the tests hold this mirror to the blend's own alpha."""
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)
+    one = f32(1.0)
+    up, down, rel = one + f32(CULL_REL), one - f32(CULL_REL), f32(CULL_REL)
+    a_min = f32(alpha_min)
+    conic, op = conic.to(torch.float32), opacity.to(torch.float32)
+    tau2 = 2.0 * torch.log(op / a_min) * up + rel
+    a, c = conic[:, 0] * down, conic[:, 2] * down
+    b = conic[:, 1].abs() * up
+    det = a * c - b * b
+    rx = torch.sqrt(tau2 * c / det) * up + f32(CULL_ABS)
+    ry = torch.sqrt(tau2 * a / det) * up + f32(CULL_ABS)
+    inf = torch.full_like(rx, float("inf"))
+    bounded = (a > 0) & (c > 0) & (det > 0)
+    rx, ry = torch.where(bounded, rx, inf), torch.where(bounded, ry, inf)
+    empty = op < a_min
+    return torch.where(empty, -inf, rx), torch.where(empty, -inf, ry)
+
+
+def cull_boxes(table, alpha_min: float):
+    """The culling box (x0, x1, y0, y1) [I, 4] of each row of a feature
+    table [I, 11]: on a CUDA tensor the ``render_jvp`` kernel's own
+    ``cull_box`` (one launch of a kernel that runs only that function), on
+    a CPU tensor :func:`cull_extent` around the splat's center.  The checks
+    hold the first to the second and to the blend's alpha."""
+    if table.device.type == "cpu":
+        rx, ry = cull_extent(table[:, 2:5], table[:, 5], alpha_min)
+        x, y = table[:, 0], table[:, 1]
+        return torch.stack([x - rx, x + rx, y - ry, y + ry], 1)
+    _check_cuda(table, torch.float32, "table")
+    if table.dim() != 2 or table.shape[1] != FEAT:
+        raise ValueError(f"table must be [I, {FEAT}], got {tuple(table.shape)}")
     from ._build import load
-    per_k = 6 if full else 3
+    boxes = torch.empty((table.shape[0], 4), dtype=torch.float32,
+                        device=table.device)
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = load("render_jvp").render_jvp(
-            table.data_ptr(), tans.data_ptr(), tile_start.data_ptr(),
-            tile_stop.data_ptr(), gt_tiles.data_ptr(), out_f.data_ptr(),
-            out_i.data_ptr(), out_t.data_ptr(), tile_start.shape[0], tiles_x,
-            cfg.tile_w, cfg.tile_h, width, height, cfg.alpha_cap,
-            cfg.alpha_min, cfg.t_terminate, tans.shape[1] // per_k, per_k,
+        rc = load("render_jvp").render_jvp_cull_boxes(
+            table.data_ptr(), table.shape[0], alpha_min, boxes.data_ptr(),
             stream)
     if rc != 0:
-        raise RuntimeError(f"render_jvp launch failed: CUDA error {rc}")
-    launches["render_jvp"] += 1
+        raise RuntimeError(f"render_jvp_cull_boxes launch failed: CUDA error "
+                           f"{rc}")
+    return boxes
+
+
+def launch_render_jvp(table, tans, tile_start, tile_stop, gt_tiles, out_f,
+                      out_i, out_t, *, cfg: RasterConfig, tiles_x: int,
+                      height: int, width: int, full: bool = False,
+                      pairs=None):
+    """The ``render_jvp`` kernel into preallocated ``out_f`` [T, 9, Q],
+    ``out_i`` [T, 3, Q] (both as ``render_fwd`` writes them) and ``out_t``
+    [T, K, 6, Q] (inputs checked by :func:`core_fwd_jvp`): one launch per
+    group of at most ``JVP_GROUP`` tangent columns, the first writing the
+    primal.  ``pairs``, a CUDA int64 [1] tensor, if given, gets the
+    (instance, pixel) pairs the kernel tested added to it."""
+    from ._build import load
+    per_k = 6 if full else 3
+    k_total = tans.shape[1] // per_k
+    pairs_ptr = None if pairs is None else pairs.data_ptr()
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for k0 in range(0, k_total, JVP_GROUP):
+            rc = load("render_jvp").render_jvp(
+                table.data_ptr(), tans.data_ptr(), tile_start.data_ptr(),
+                tile_stop.data_ptr(), gt_tiles.data_ptr(), out_f.data_ptr(),
+                out_i.data_ptr(), out_t.data_ptr(), tile_start.shape[0],
+                tiles_x, cfg.tile_w, cfg.tile_h, width, height,
+                cfg.alpha_cap, cfg.alpha_min, cfg.t_terminate,
+                min(JVP_GROUP, k_total - k0), per_k, k0, k_total,
+                int(k0 == 0), pairs_ptr, stream)
+            if rc != 0:
+                raise RuntimeError(
+                    f"render_jvp launch failed: CUDA error {rc}")
+            launches["render_jvp"] += 1
 
 
 def core_fwd_jvp(table, tans, tile_start, tile_stop, gt_tiles, *,
@@ -514,9 +584,6 @@ def core_fwd_jvp(table, tans, tile_start, tile_stop, gt_tiles, *,
     _check_core_inputs(table, tile_start, tile_stop, gt_tiles, cfg)
     _check_cuda(tans, torch.float32, "tans")
     k_t = _tangent_count(tans, full)
-    if k_t not in JVP_K:
-        raise ValueError(f"the render_jvp kernel is instantiated for K in "
-                         f"{JVP_K} tangents, got {k_t}")
     if tans.shape[0] != table.shape[0] or tans.device != table.device:
         raise ValueError("tans must have one row per row of table, on its "
                          "device")

@@ -11,17 +11,22 @@ sorted positions where the backward core wrote its rows.  So
 taken in order of j: bit-reproducible from run to run, where a scatter
 with float atomics is not.  On the TPU this was a one-hot matrix product;
 on a CUDA tensor it is the ``segment_sum_rows`` kernel of
-``csrc/render_bwd.cu`` (one thread per Gaussian and column, the gather
-through ``inv`` fused in); on a CPU tensor the plain version,
-``index_add_`` over the gathered rows, which adds in input order there and
-so equals the kernel bit for bit.
+``csrc/render_bwd.cu`` (one warp per 32 consecutive Gaussians walking the
+span of their runs 32 entries at a time, the gather through ``inv`` fused
+in, 12-float rows as three 16-byte vectors); on a CPU tensor the plain version, ``index_add_`` over
+the gathered rows, which adds in input order there and so equals the
+kernel bit for bit.
+
+The render op uses it twice: for the backward's gradient rows (F = 12) and
+for the per-Gaussian uncertainty sums (F = 2: each instance's ``u_inst``
+and its pixel count, exact in float32 below 2**24).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .render import _check_cuda, launches
+from .render import _check_cuda, launches, row_launches
 
 
 def runs(gauss_start, gauss_stop):
@@ -73,4 +78,5 @@ def segment_sum_rows(rows, inv, gauss_start, gauss_stop):
     if rc != 0:
         raise RuntimeError(f"segment_sum_rows launch failed: CUDA error {rc}")
     launches["segment_sum_rows"] += 1
+    row_launches[f] = row_launches.get(f, 0) + 1
     return out

@@ -10,6 +10,7 @@ Pipeline::
                       version on the CPU), inside a torch.autograd.Function
   -> image assembly   background composite, tile -> image layout, and the
                       deterministic per-Gaussian uncertainty sums
+                      (``segment_sum_rows`` over the binning's runs)
 
 The render core's backward is analytic: the backward blend writes one
 gradient row per instance and ``segment_sum_rows`` reduces them, in order,
@@ -39,7 +40,7 @@ from ..camera import Camera
 from ..config import RasterConfig
 from .binning import Binned, bin_gaussians, default_max_instances
 from .kernels.render import (FEAT, CoreOutputs, core_bwd, core_fwd,
-                             core_fwd_jvp, scatter_sum)
+                             core_fwd_jvp)
 from .kernels.segment_sum import segment_sum_rows
 from .oracle import RenderOutputs
 from .projection import preprocess
@@ -182,12 +183,15 @@ def _outputs(out: CoreOutputs, prep, binn: Binned, bg, cfg: RasterConfig,
         # variance's, like the reference backward
         var_tiles = var_tiles - var_tiles.detach()
 
-    # the budget's unused tail maps to the last Gaussian; dropping its keys
-    # keeps that Gaussian's segment short (its values are zeros anyway)
-    keys = torch.where(binn.valid, binn.gauss_id,
-                       torch.full_like(binn.gauss_id, -1))
-    gau_u, gau_npix = scatter_sum(keys, out.u_inst.detach(), out.npix_inst,
-                                  prep.radius.shape[0])
+    # each Gaussian's instances summed over its pre-sort run, in run order:
+    # the order of their sorted positions too (one Gaussian's instances
+    # sort by tile), and culled instances add zeros.  The pixel counts ride
+    # along as floats, exact below 2**24.
+    stats = torch.stack([out.u_inst.detach(),
+                         out.npix_inst.to(out.u_inst.dtype)], 1)
+    gau = segment_sum_rows(stats, binn.inv, binn.gauss_start,
+                           binn.gauss_stop)
+    gau_u, gau_npix = gau[:, 0], gau[:, 1].to(torch.int32)
 
     return RenderOutputs(
         color=color_img,

@@ -17,6 +17,7 @@ gradients against the CPU path's at ``test_rasterize.py``'s gradient
 tolerance, rtol 5e-4 / atol 2e-5.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -169,21 +170,32 @@ def test_render_bwd_matches_plain(dev, tile, want):
     assert torch.equal(k, again)
 
 
-def test_segment_sum_rows_matches_plain(dev):
+@pytest.mark.parametrize("f,offset", [(12, 0), (2, 0), (12, 1), (5, 0)])
+def test_segment_sum_rows_matches_plain(dev, f, offset):
     """The kernel adds each run in order: bit-equal to index_add_ on the
-    CPU, which adds in the same order."""
-    g = torch.Generator().manual_seed(0)
+    CPU, which adds in the same order.  Runs empty, longer than the
+    kernel's prefetch depth, and clipped by the budget; F = 12 with its
+    16-byte loads, F = 2, and the plain loop's cases (rows at an offset of
+    one float, F = 5)."""
+    g = torch.Generator().manual_seed(f + offset)
     p, cap = 5000, 20000
-    lengths = torch.randint(0, 8, (p,), generator=g)
+    lengths = torch.randint(0, 10, (p,), generator=g)
+    lengths[::97] = 23
     ends = torch.cumsum(lengths, 0).clamp_max(cap)
+    assert int(torch.cumsum(lengths, 0)[-1]) > cap
     start = (ends - lengths).clamp(0, cap).to(torch.int32)
     stop = ends.to(torch.int32)
-    rows = torch.randn(cap, 12, generator=g)
+    rows = torch.randn(cap * f + offset, generator=g)[offset:].view(cap, f)
     inv = torch.randperm(cap, generator=g).to(torch.int32)
+    rows_d = torch.randn(cap * f + offset, generator=g).to(dev)
+    rows_d[offset:] = rows.reshape(-1).to(dev)
+    rows_d = rows_d[offset:].view(cap, f)
     before = render.launches["segment_sum_rows"]
-    a = segment_sum_rows(*(x.to(dev) for x in (rows, inv, start, stop)))
+    before_f = render.row_launches.get(f, 0)
+    a = segment_sum_rows(rows_d, *(x.to(dev) for x in (inv, start, stop)))
     torch.cuda.synchronize()
     assert render.launches["segment_sum_rows"] == before + 1
+    assert render.row_launches[f] == before_f + 1
     b = segment_sum_rows_reference(rows, inv, start, stop)
     assert torch.equal(a.cpu(), b)
 
@@ -220,14 +232,16 @@ def test_rasterize_grads_card_match_cpu(dev):
 
 
 def test_backward_bit_reproducible(dev):
-    before = dict(render.launches)
+    render.reset_launches()
     a = scene_grads(dev)
     b = scene_grads(dev)
     for k in a:
         assert torch.equal(a[k], b[k]), k
-    assert render.launches["render_bwd"] == before["render_bwd"] + 2
-    assert render.launches["segment_sum_rows"] == \
-        before["segment_sum_rows"] + 2
+    assert render.launches["render_bwd"] == 2
+    # per step one for the forward's uncertainty sums (F = 2), one for the
+    # rows (F = 12)
+    assert render.launches["segment_sum_rows"] == 4
+    assert render.row_launches == {2: 2, 12: 2}
 
 
 def jvp_inputs(tile, k_t, full, device, seed=0):
@@ -252,15 +266,15 @@ def assert_tangents_close(k, p, fwd_k, fwd_p, rtol=2e-4):
     assert float(k.median.abs().max()) == 0.0
 
 
-@pytest.mark.parametrize("k_t,full", [(6, False), (6, True), (1, False),
-                                      (1, True)])
-@pytest.mark.parametrize("tile", [(8, 16), (32, 32)])
-def test_render_jvp_matches_plain(dev, tile, k_t, full):
+def check_render_jvp(dev, tile, k_t, full):
     args, tans, ckw = jvp_inputs(tile, k_t, full, dev)
     before = render.launches["render_jvp"]
     out, tan = render.core_fwd_jvp(args[0], tans, *args[1:], **ckw)
     torch.cuda.synchronize()
-    assert render.launches["render_jvp"] == before + 1
+    # one launch per group of at most JVP_GROUP tangents
+    groups = -(-k_t // render.JVP_GROUP)
+    assert render.launches["render_jvp"] == before + groups
+    assert tan.color.shape[1] == k_t
     p_out, p_tan = render.core_fwd_jvp_reference(args[0], tans, *args[1:],
                                                  **ckw)
     assert_core_close(out, p_out)
@@ -276,10 +290,124 @@ def test_render_jvp_matches_plain(dev, tile, k_t, full):
         assert torch.equal(x, y)
 
 
-def test_render_jvp_rejects_other_k(dev):
+@pytest.mark.parametrize("k_t,full", [(6, False), (6, True), (1, False),
+                                      (1, True)])
+@pytest.mark.parametrize("tile", [(8, 16), (32, 32)])
+def test_render_jvp_matches_plain(dev, tile, k_t, full):
+    check_render_jvp(dev, tile, k_t, full)
+
+
+@pytest.mark.parametrize("full", [False, True])
+@pytest.mark.parametrize("k_t", [2, 3, 4, 5, 8, 10])
+@pytest.mark.parametrize("tile", [(8, 8), (32, 32)])
+def test_render_jvp_other_k_matches_plain(dev, tile, k_t, full):
+    """Every K, not only the twist basis's 6: K <= 6 in one launch, K = 8
+    and 10 in two (6 + 2 and 6 + 4 columns, the primal from the first)."""
+    check_render_jvp(dev, tile, k_t, full)
+
+
+def random_splats(n, alpha_min, seed):
+    """Splats of every shape the culling box must hold: scales from 0.05
+    to 12 px, aspect ratios up to 240 at any angle (nearly degenerate
+    conics), opacities from exactly ``alpha_min`` and a few ulps above it
+    to 1, centers at integer and fractional pixels."""
+    rng = np.random.RandomState(seed)
+    sx = np.exp(rng.uniform(np.log(0.05), np.log(12.0), n))
+    sy = np.exp(rng.uniform(np.log(0.05), np.log(12.0), n))
+    th = rng.uniform(0, np.pi, n)
+    c, s = np.cos(th), np.sin(th)
+    cov = np.stack([[c * c * sx ** 2 + s * s * sy ** 2,
+                     c * s * (sx ** 2 - sy ** 2)],
+                    [c * s * (sx ** 2 - sy ** 2),
+                     s * s * sx ** 2 + c * c * sy ** 2]]).transpose(2, 0, 1)
+    conic = np.linalg.inv(cov)
+    conic = np.stack([conic[:, 0, 0], conic[:, 0, 1], conic[:, 1, 1]], 1)
+    am = np.float32(alpha_min)
+    op = np.where(rng.uniform(size=n) < 0.5,
+                  am * (1 + rng.choice([0, 1e-7, 1e-6, 1e-4, 1e-2], n)),
+                  rng.uniform(am, 1.0, n)).astype(np.float32)
+    xy = np.where(rng.uniform(size=(n, 1)) < 0.3,
+                  np.round(rng.uniform(20, 44, (n, 2))),
+                  rng.uniform(20, 44, (n, 2)))
+    return (torch.as_tensor(xy.astype(np.float32)),
+            torch.as_tensor(conic.astype(np.float32)), torch.as_tensor(op))
+
+
+def contributing_pixels(xy, conic, op, cfg, size=64):
+    """[N, size, size] mask of the pixels of a size x size grid where a
+    splat's alpha reaches ``alpha_min`` by the per-pair test of
+    render_jvp.cu, in its float32 expressions; and the pixel coordinates
+    px [1, size, 1], py [1, 1, size]."""
+    grid = torch.arange(size, dtype=torch.float32)
+    px, py = grid[None, :, None], grid[None, None, :]
+    dx = xy[:, 0, None, None] - px
+    dy = xy[:, 1, None, None] - py
+    a, b, c = (conic[:, i, None, None] for i in range(3))
+    power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
+    alpha = torch.clamp_max(op[:, None, None] * torch.exp(power),
+                            cfg.alpha_cap)
+    return (power <= 0) & (alpha >= cfg.alpha_min), px, py
+
+
+def boxes_agree(k, m, ulps=8):
+    """Culling boxes [N, 4] (x0, x1, y0, y1): the same infinities, and
+    finite edges within ``ulps`` float32 ulps of the larger edge of their
+    axis (the card's logf and the CPU's log may round differently)."""
+    axis = torch.stack([m[:, 0:2].abs().amax(1), m[:, 2:4].abs().amax(1)], 1)
+    unit = axis.repeat_interleave(2, 1) * 2.0 ** -23
+    fin = torch.isfinite(m)
+    if not (torch.equal(torch.isfinite(k), fin)
+            and torch.equal(k[~fin], m[~fin])):
+        return False
+    return bool(((k - m).abs()[fin] <= ulps * unit[fin]).all())
+
+
+def test_render_jvp_cull_boxes_hold_every_contributing_pixel(dev):
+    """The kernel's own culling box (``cull_box``, through
+    ``render.cull_boxes``) contains every pixel where the blend's float32
+    alpha reaches ``alpha_min``, and equals the box of its CPU mirror
+    ``render.cull_extent``, which ``test_torch_render_jvp.py`` holds to the
+    same pixels: the two copies of the box cannot drift apart."""
+    cfg = RasterConfig()
+    xy, conic, op = random_splats(3000, cfg.alpha_min, seed=5)
+    table = torch.zeros(xy.shape[0], render.FEAT)
+    table[:, 0:2], table[:, 2:5], table[:, 5] = xy, conic, op
+    box = render.cull_boxes(table.to(dev), cfg.alpha_min).cpu()
+    hits, px, py = contributing_pixels(xy, conic, op, cfg)
+    x0, x1, y0, y1 = (box[:, i, None, None] for i in range(4))
+    inside = (px >= x0) & (px <= x1) & (py >= y0) & (py <= y1)
+    assert int(hits.sum()) > 10000
+    assert not bool((hits & ~inside).any())
+    assert boxes_agree(box, render.cull_boxes(table, cfg.alpha_min))
+
+
+def test_render_jvp_rejects_bad_tangent_table(dev):
     args, tans, ckw = jvp_inputs((8, 8), 2, False, dev)
-    with pytest.raises(ValueError, match="instantiated"):
-        render.core_fwd_jvp(args[0], tans, *args[1:], **ckw)
     with pytest.raises(ValueError):
         render.core_fwd_jvp(args[0], tans[:, :5].contiguous(), *args[1:],
                             **ckw)
+    with pytest.raises(ValueError):
+        render.core_fwd_jvp(args[0], tans.double(), *args[1:], **ckw)
+
+
+def test_render_jvp_culls_pairs(dev):
+    """The kernel tests fewer (instance, pixel) pairs than the pixels'
+    segments hold, and counting them changes no output."""
+    args, tans, ckw = jvp_inputs((32, 32), 6, False, dev)
+    table, start, stop, gt = args
+    n_tiles, q = gt.shape
+    outs = [(torch.empty((n_tiles, 9, q), device=dev),
+             torch.empty((n_tiles, 3, q), dtype=torch.int32, device=dev),
+             torch.empty((n_tiles, 6, 6, q), device=dev)) for _ in range(2)]
+    pairs = torch.zeros(1, dtype=torch.int64, device=dev)
+    kw = {k: v for k, v in ckw.items() if k != "full"}
+    render.launch_render_jvp(table, tans, start, stop, gt, *outs[0], **kw,
+                             pairs=pairs)
+    render.launch_render_jvp(table, tans, start, stop, gt, *outs[1], **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(*outs):
+        assert torch.equal(x, y)
+    px_mask = render.pixel_coords(n_tiles, ckw["tiles_x"], 32, 32,
+                                  ckw["height"], ckw["width"], dev)[2]
+    walked = int(((stop - start).to(torch.int64)[:, None] * px_mask).sum())
+    assert 0 < int(pairs) < walked

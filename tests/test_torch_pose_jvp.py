@@ -6,9 +6,11 @@ variant, against the JAX package's ``rasterize_with_pose_jvp(...,
 backend="xla")`` on the same scene: the primal at
 ``test_torch_rasterize.assert_outputs_close``'s tolerances and the tangent
 images at ``test_pose_jvp_full_variant_pallas_matches_xla``'s rtol 2e-4 /
-atol 5e-5.  Then the overflow report of ``test_pose_jvp_overflow_reported``
-and the three checks of ``test_binning_reuse_exact_at_bin_pose`` on the
-port (``bin_for_view`` + ``rasterize(binn=)``), at that test's tolerances.
+atol 5e-5; also with K = 2 and 8 view directions, as the JAX package
+takes any K.  Then the overflow report of
+``test_pose_jvp_overflow_reported`` and the three checks of
+``test_binning_reuse_exact_at_bin_pose`` on the port (``bin_for_view`` +
+``rasterize(binn=)``), at that test's tolerances.
 """
 
 import jax
@@ -60,6 +62,35 @@ def test_pose_jvp_matches_jax(full):
     assert float(b.color.abs().max()) > 0.1
     assert float(b.depth_median.abs().max()) == 0.0
     assert not b.color.requires_grad
+
+
+@pytest.mark.parametrize("full", [False, True])
+@pytest.mark.parametrize("k_t", [2, 8])
+def test_pose_jvp_any_k_matches_jax(k_t, full):
+    """K other than the twist basis's 6: its first two directions, and all
+    six plus two combinations of them (more than one kernel launch carries
+    on the card), the same [K, 4, 4] array for both packages."""
+    cfg = CFG.replace(pose_cov2d_branch=full)
+    scene, cam = make_scene(p=96, h=32, w=40, seed=22)
+    kw = {k: v for k, v in scene.items() if k != "means3D"}
+    tw = np.moveaxis(np.asarray(jax.jacfwd(
+        lambda xi: jlie.apply_twist(cam.viewmatrix, xi))(
+            jnp.zeros((6,), jnp.float32))), -1, 0)
+    dirs = tw[:2] if k_t == 2 else np.concatenate(
+        [tw, tw[0:1] + 0.5 * tw[3:4], tw[1:2] - tw[5:6]])
+    dirs = dirs.astype(np.float32)
+    a = jax_pose_jvp(scene["means3D"], cam, cfg, jnp.asarray(dirs),
+                     backend="xla", tile_batch=4, **kw)
+    b = rasterize_with_pose_jvp(
+        torch.as_tensor(np.array(scene["means3D"])), port_camera(cam),
+        port_config(cfg), torch.as_tensor(dirs), **to_torch(kw))
+    assert_outputs_close(a.out, b.out)
+    for name in ("color", "depth", "opacity_map", "depth_median"):
+        got, want = getattr(b, name).numpy(), np.asarray(getattr(a, name))
+        assert got.shape == want.shape and got.shape[0] == k_t, name
+        np.testing.assert_allclose(got, want, rtol=2e-4, atol=5e-5,
+                                   err_msg=name)
+    assert float(b.color.abs().max()) > 0.1
 
 
 def test_pose_jvp_overflow_reported():

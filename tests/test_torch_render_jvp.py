@@ -11,7 +11,9 @@ tangents, light and full.  Tolerances: the primal as
 tangents at ``test_pose_jvp_full_variant_pallas_matches_xla``'s rtol 2e-4
 / atol 5e-5.  The dual core's primal equals ``core_fwd_reference``'s bit
 for bit.  The card's kernel is held against the plain version in
-``test_torch_cuda.py``.
+``test_torch_cuda.py``; here ``render.cull_extent``, the mirror of the
+kernel's culling box, is held to the blend's own float32 alpha: it must
+contain every pixel a splat contributes to.
 """
 
 import jax.numpy as jnp
@@ -26,6 +28,7 @@ from diff_gaussian_rasterization_tpu_torch.config import RasterConfig
 from diff_gaussian_rasterization_tpu_torch.ops import blend
 from diff_gaussian_rasterization_tpu_torch.ops.kernels import render
 
+from test_torch_cuda import contributing_pixels, random_splats
 from test_torch_render_fwd import assert_core_close, setup
 
 torch.set_num_threads(2)
@@ -143,6 +146,68 @@ def test_core_fwd_jvp_reference_matches_xla(full):
         port["table"], tans, port["tile_start"], port["tile_stop"],
         port["gt_tiles"], full=full, **tkw)
     assert all(torch.equal(x, y) for x, y in zip(bt, ct))
+
+
+def test_cull_extent_holds_every_contributing_pixel():
+    """``render.cull_extent`` (the mirror of render_jvp.cu's ``cull_box``)
+    contains every pixel where the blend's own float32 alpha reaches
+    ``alpha_min``, so the kernel's culling skips no contributing pair."""
+    cfg = RasterConfig()
+    xy, conic, op = random_splats(3000, cfg.alpha_min, seed=5)
+    rx, ry = render.cull_extent(conic, op, cfg.alpha_min)
+    hits, px, py = contributing_pixels(xy, conic, op, cfg)
+    dx = xy[:, 0, None, None] - px
+    dy = xy[:, 1, None, None] - py
+    inside = (dx.abs() <= rx[:, None, None]) & (dy.abs() <= ry[:, None, None])
+    assert int(hits.sum()) > 10000
+    assert not bool((hits & ~inside).any())
+    # the box is bounded for every conic short of near-degenerate (its
+    # relative slack makes det <= 0 once det < ~1e-4 (A C + B^2)), and,
+    # for conics not near that, tight: at most ~1% and 0.02 px beyond the
+    # exact ellipse's extent at tau + 1e-4
+    cd = conic.double()
+    det = cd[:, 0] * cd[:, 2] - cd[:, 1] ** 2
+    cond = det / (cd[:, 0] * cd[:, 2] + cd[:, 1] ** 2)
+    assert float((cond > 1e-3).double().mean()) > 0.8
+    assert bool(torch.isfinite(rx[cond > 1e-3]).all())
+    tau = torch.log(op.double() / cfg.alpha_min).clamp_min(0)
+    exact = torch.sqrt(2 * (tau + 1e-4) * cd[:, 2] / det)
+    tight = cond > 0.05
+    assert bool((rx.double()[tight] <= exact[tight] * 1.01 + 0.02).all())
+    assert bool((rx >= 0).all())
+    rx0, _ = render.cull_extent(conic[:2], op[:2] * 0.5, 1.0)
+    assert bool((rx0 == float("-inf")).all())
+    rxd, _ = render.cull_extent(torch.tensor([[1.0, 2.0, 1.0]]),
+                                torch.tensor([0.9]), cfg.alpha_min)
+    assert bool(torch.isinf(rxd).all() and (rxd > 0).all())
+
+
+def test_cull_boxes_on_the_cpu_are_the_mirror():
+    """On a CPU table ``render.cull_boxes`` (the card's check of the
+    kernel's own boxes) is ``cull_extent`` around each splat's center, with
+    the kernel's empty (inf, -inf) and unbounded (-inf, inf) edges, and it
+    holds the same contributing pixels."""
+    cfg = RasterConfig()
+    xy, conic, op = random_splats(500, cfg.alpha_min, seed=6)
+    extra = torch.tensor([[1.0, 2.0, 1.0], [1.0, 0.0, 1.0]])
+    conic, op = torch.cat([conic, extra]), torch.cat([op, torch.tensor(
+        [0.9, cfg.alpha_min * 0.5])])
+    xy = torch.cat([xy, torch.full((2, 2), 30.0)])
+    table = torch.zeros(xy.shape[0], render.FEAT)
+    table[:, 0:2], table[:, 2:5], table[:, 5] = xy, conic, op
+    box = render.cull_boxes(table, cfg.alpha_min)
+    rx, ry = render.cull_extent(conic, op, cfg.alpha_min)
+    want = torch.stack([xy[:, 0] - rx, xy[:, 0] + rx, xy[:, 1] - ry,
+                        xy[:, 1] + ry], 1)
+    assert torch.equal(box, want)
+    inf = float("inf")
+    assert box[-2].tolist() == [-inf, inf, -inf, inf]
+    assert box[-1].tolist() == [inf, -inf, inf, -inf]
+    hits, px, py = contributing_pixels(xy, conic, op, cfg)
+    x0, x1, y0, y1 = (box[:, i, None, None] for i in range(4))
+    inside = (px >= x0) & (px <= x1) & (py >= y0) & (py <= y1)
+    assert int(hits.sum()) > 1000
+    assert not bool((hits & ~inside).any())
 
 
 def test_core_fwd_jvp_rejects_bad_tangent_table():
