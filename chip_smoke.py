@@ -21,39 +21,49 @@ the tracking benchmark's frame (``bench_tracking.py``: 100,000 Gaussians,
    float64, then with K = 1, 2, 3, 4, 5, 8 and 10 of those tangents, and
    its culling boxes against their mirror ``render.cull_boxes``; and (in
    phase 3, before the mapping steps) on the first mapping step's render
-   at 500k, the gradient rows also against the plain version in float64;
-   ``segment_sum_rows`` on the gradient rows (F = 12) and on the
-   uncertainty statistics (F = 2), bit-equal to its plain version on the
-   CPU;
+   at 500k, the gradient rows (``render_bwd`` stopped at the forward's
+   ``n_contrib``, as the main path runs it) also against the plain version
+   in float64; ``tile_scatter_sum`` on the forward's own per-pixel midx
+   and ucross and ``segment_sum_rows`` on the gradient rows (F = 12) and
+   on the uncertainty statistics (F = 2), bit-equal to their plain
+   versions on the CPU; ``segment_sum`` (the dense oracle's reduction) on
+   the pixels sorted by midx;
 3. drive the main paths through the entry points a user calls, each with
    every launch counter set to 0 just before and read just after: the
    forward (``rasterize`` with precomputed colors, ``render_model`` on an
    SH-3 model from four poses; finite outputs, no overflow, the instance
-   count, one ``render_fwd``, ``segment_sum`` and ``segment_sum_rows``
-   (F = 2) launch per render, bit-equal repeat renders, the card against
-   the CPU path on a small scene); forward + backward ``rasterize`` (one
-   ``render_fwd``, ``render_bwd`` and ``segment_sum`` and two
-   ``segment_sum_rows`` launches, F = 2 and 12, per step, finite gradients
-   for every leaf and the view matrix, bit-equal repeat backwards, the
-   card's gradients against the port's dense ``render_oracle`` and against
-   the CPU path in float64 on small scenes); five ``map_step``s at 500k, whose loss must
-   fall; and ``track_frame`` at the record configuration, light and full
-   variant (5 ``render_jvp``, ``segment_sum`` and ``segment_sum_rows``
-   and no ``render_fwd`` launch per tracked frame, no overflow in either
-   level's frozen binning, pose error after below 1e-3, bit-equal
-   repeats), the dual render's primal bit-equal to
+   count, one ``render_fwd``, ``tile_scatter_sum`` and
+   ``segment_sum_rows`` (F = 2) launch and no ``segment_sum`` per render,
+   bit-equal repeat renders, the card against the CPU path on a small
+   scene); forward + backward ``rasterize`` (one ``render_fwd``,
+   ``render_bwd`` and ``tile_scatter_sum`` and two ``segment_sum_rows``
+   launches, F = 2 and 12, per step, finite gradients for every leaf and
+   the view matrix, bit-equal repeat backwards, the card's gradients
+   against the port's dense ``render_oracle`` (whose own path launches
+   ``segment_sum`` once) and against the CPU path in float64 on small
+   scenes); five ``map_step``s at 500k, whose loss must fall; and
+   ``track_frame`` at the record configuration, light and full variant (5
+   ``render_jvp``, ``tile_scatter_sum`` and ``segment_sum_rows`` and no
+   ``render_fwd`` or ``segment_sum`` launch per tracked frame, no overflow
+   in either level's frozen binning, pose error after below 1e-3,
+   bit-equal repeats), the dual render's primal bit-equal to
    ``rasterize``'s, the reused binning against a fresh one, and the card's
    tracking costs against the CPU path's on a small scene;
 4. time each kernel, its plain version, its bound and the one PyTorch call
-   that computes the same function (``segment_sum`` and
-   ``segment_sum_rows``, the latter at 100k and at 500k with F = 12 and at
-   100k with F = 2, by device time from torch.profiler, since their launch
-   from Python outlasts them; the uncertainty sums against the sorted
-   scatter they replaced; ``render_jvp`` also with the pairs its culled
-   walk tests), the
-   whole forward, forward + backward, a mapping step, a dual render and a
-   tracked frame, with CUDA events, and list the device time of the forward, of forward + backward and of
-   a tracked frame by kernel with torch.profiler.
+   that computes the same function (``tile_scatter_sum`` at 100k and at
+   the 500k map step's render against ``index_add_`` of the in-range
+   pixels' ucross at their midx and against the sorted scatter it
+   replaced, and, checked bit-equal to the CPU, in its worst case, every
+   pixel naming its own instance; ``segment_sum``, and ``segment_sum_rows`` at 100k and at 500k
+   with F = 12 and at 100k with F = 2, by device time from
+   torch.profiler, since their launch from Python outlasts them; the
+   uncertainty sums against the sorted scatter they replaced;
+   ``render_bwd`` at 100k and at 500k, stopped at ``n_contrib`` and
+   walking the whole segment, with the pairs it tests; ``render_jvp`` also
+   with the pairs its culled walk tests), the whole forward, forward +
+   backward, a mapping step, a dual render and a tracked frame, with CUDA
+   events, and list the device time of the forward, of forward + backward
+   and of a tracked frame by kernel with torch.profiler.
 
 Prints the card's name and power limit, a ``kernels`` JSON line, and last
 the line ``{"ok": true, "device": {...}}``.  Exits non-zero, without that
@@ -305,10 +315,12 @@ def compare_rows(rows_k, rows_p, rows_d, tile_ok, tile_ok_d, tile_start,
 
 
 def check_render_kernels(tag, table, binn, gt_tiles, core_kw, check, seed=0):
-    """``render_fwd``, ``render_bwd`` and ``segment_sum_rows`` against their
-    plain versions on one render's sorted table and binning, the backward
-    with standard-normal cotangents from a generator seeded with ``seed``.
-    Returns the largest errors and what phase 4 reuses."""
+    """``render_fwd``, ``render_bwd`` (stopped at the forward's
+    ``n_contrib``, as the main path runs it), ``tile_scatter_sum`` and
+    ``segment_sum_rows`` against their plain versions on one render's
+    sorted table and binning, the backward with standard-normal cotangents
+    from a generator seeded with ``seed``.  Returns the largest errors and
+    what phase 4 reuses."""
     import torch
     from diff_gaussian_rasterization_tpu_torch.ops import blend
     from diff_gaussian_rasterization_tpu_torch.ops.kernels import render
@@ -334,7 +346,7 @@ def check_render_kernels(tag, table, binn, gt_tiles, core_kw, check, seed=0):
               out_k.t_final)
     pix = blend.bwd_pixel_inputs(gt_tiles, *totals, *cots).contiguous()
     rows_k = render.core_bwd(table, start, stop, gt_tiles, totals, cots,
-                             **core_kw)
+                             **core_kw, n_contrib=out_k.n_contrib)
     rows_p = render.core_bwd_reference(table, start, stop, pix, **core_kw)
     out_d = render.core_fwd_reference(table.double(), start, stop,
                                       gt_tiles.double(), **core_kw)
@@ -359,6 +371,38 @@ def check_render_kernels(tag, table, binn, gt_tiles, core_kw, check, seed=0):
                   "the column's largest value, in every column")
     check(left_out < 5e-3,
           f"{tag}: rows of tiles whose n_contrib disagrees < 5e-3")
+
+    # tile_scatter_sum on the forward kernel's own per-pixel midx and
+    # ucross (ucross is no CoreOutputs field: one more raw launch): in pixel
+    # order, so bit-equal to the plain version's index_add_ on the CPU, and
+    # core_fwd's u_inst / npix_inst are its
+    out_f = torch.empty((n_tiles, 9, q), device=dev)
+    out_i = torch.empty((n_tiles, 3, q), dtype=torch.int32, device=dev)
+    render.launch_render_fwd(table, start, stop, gt_tiles, out_f, out_i,
+                             **core_kw)
+    n_inst = table.shape[0]
+    ts_k = render.tile_scatter_sum(out_i[:, 2], out_f[:, 8], start, stop,
+                                   n_inst)
+    ts_p = render.tile_scatter_sum_reference(out_i[:, 2], out_f[:, 8], start,
+                                             stop, n_inst)
+    ts_cpu = render.tile_scatter_sum_reference(
+        out_i[:, 2].cpu(), out_f[:, 8].cpu(), start.cpu(), stop.cpu(),
+        n_inst)
+    torch.cuda.synchronize()
+    err_ts = float((ts_k[0] - ts_p[0]).abs().max())
+    log(f"[kernel] {tag}: tile_scatter_sum: max_abs_err "
+        f"{float((ts_k[0].cpu() - ts_cpu[0]).abs().max())} against the plain "
+        f"version on the CPU, {err_ts} against it on the card (atomics); "
+        f"{int(ts_cpu[1].sum())} pixels name {int((ts_cpu[1] > 0).sum())} "
+        f"of {n_inst} instances; longest segment "
+        f"{int((stop - start).max())} for {q} pixels a tile")
+    check(torch.equal(ts_k[0].cpu(), ts_cpu[0])
+          and torch.equal(ts_k[1].cpu(), ts_cpu[1]),
+          f"{tag}: tile_scatter_sum equals its plain version on the CPU bit "
+          "for bit")
+    check(torch.equal(out_k.u_inst, ts_k[0])
+          and torch.equal(out_k.npix_inst, ts_k[1]),
+          f"{tag}: core_fwd's u_inst and npix_inst are tile_scatter_sum's")
 
     # segment_sum_rows on those rows: in run order, so bit-equal to the
     # plain version's index_add_ on the CPU (on the card index_add_ adds
@@ -388,8 +432,9 @@ def check_render_kernels(tag, table, binn, gt_tiles, core_kw, check, seed=0):
           f"{tag}: segment_sum_rows (F = 2, the uncertainty sums) equals its "
           "plain version on the CPU bit for bit")
     return dict(out_k=out_k, pix=pix, rows_k=rows_k, binn=binn, stats=stats,
+                table=table, gt_tiles=gt_tiles, out_f=out_f, out_i=out_i,
                 err_fwd=err_fwd, err_bwd=err_bwd, err_rows=err_rows,
-                err_u=err_u)
+                err_u=err_u, err_ts=err_ts)
 
 
 def segment_sum_rows_times(tag, rows, binn, card):
@@ -422,6 +467,138 @@ def segment_sum_rows_times(tag, rows, binn, card):
         f"{ms_plain:.4f} ms, index_add_ of the {n_valid} valid rows at sorted "
         f"positions {ms_lib:.4f} ms device time ({ms_lib_ev:.4f} ms)")
     return dict(ms=ms, plain_ms=ms_plain, bound_ms=bound, library_ms=ms_lib)
+
+
+def tile_scatter_times(tag, st, card):
+    """``tile_scatter_sum`` at one render's shapes: the kernel and the one
+    PyTorch call that computes its function from the same unsorted input,
+    ``index_add_`` of the in-range pixels' ucross at their midx (atomics:
+    not reproducible), by device time (``device_ms``; their CUDA-event
+    times, which include the host's launch, are logged beside); its plain
+    version; its bound by bytes (midx and ucross read once, the ranges
+    read once, the two outputs written once); and the whole reduction by
+    CUDA events and by device time against the path it replaced on the
+    render path (``scatter_sum``: a stable sort of every pixel's key, a
+    searchsorted and the ``segment_sum`` kernel)."""
+    import torch
+    from diff_gaussian_rasterization_tpu_torch.ops.kernels import render
+    out_f, out_i, binn = st["out_f"], st["out_i"], st["binn"]
+    midx, ucross = out_i[:, 2], out_f[:, 8]
+    start, stop = binn.tile_start, binn.tile_stop
+    n_inst, dev = st["table"].shape[0], midx.device
+    n_tiles, q = midx.shape
+    kernel = lambda: render.tile_scatter_sum(midx, ucross, start, stop,
+                                             n_inst)
+    ms, ms_ev = device_ms(kernel), time_ms(kernel, iters=50)
+    ms_plain = time_ms(lambda: render.tile_scatter_sum_reference(
+        midx, ucross, start, stop, n_inst), iters=20)
+    sel = midx.reshape(-1) >= 0
+    keys = midx.reshape(-1)[sel].to(torch.int64)
+    vals = ucross.reshape(-1)[sel]
+    lib = lambda: torch.zeros(n_inst, device=dev).index_add_(0, keys, vals)
+    ms_lib, ms_lib_ev = device_ms(lib), time_ms(lib, iters=50)
+    ones = torch.ones(n_tiles * q, dtype=torch.int32, device=dev)
+    old = lambda: render.scatter_sum(midx.reshape(-1), ucross.reshape(-1),
+                                     ones, n_inst)
+    ms_old, ms_old_ev = device_ms(old), time_ms(old, iters=50)
+    nbytes = n_tiles * q * 8 + n_tiles * 8 + n_inst * 8
+    bound = nbytes / PEAK_BYTES * 1e3
+    # the most distinct instances a tile names: the kernel's passes are
+    # ceil(that / 32)
+    named = torch.where((midx >= start[:, None]) & (midx < stop[:, None]),
+                        midx, torch.full_like(midx, -1))
+    named = torch.sort(named, dim=1)[0]
+    distinct = (((named[:, 1:] != named[:, :-1]) & (named[:, 1:] >= 0))
+                .sum(1) + (named[:, 0] >= 0))
+    most = int(distinct.max())
+    log(f"[time] {card}: tile_scatter_sum ({tag}) kernel {ms:.4f} ms device "
+        f"time ({ms_ev:.4f} ms by CUDA events) on {n_tiles * q} pixels "
+        f"({int(sel.sum())} with a median crossing) / {n_inst} instances, "
+        f"at most {most} named by a tile ({-(-most // 32)} passes) "
+        f"(bound {bound:.4f} ms by bytes, {nbytes} bytes), plain "
+        f"{ms_plain:.4f} ms, index_add_ of the in-range pixels' ucross at "
+        f"their midx {ms_lib:.4f} ms device time ({ms_lib_ev:.4f} ms); the "
+        f"sorted scatter it replaced (sort, searchsorted, segment_sum) "
+        f"{ms_old:.4f} ms device time ({ms_old_ev:.4f} ms by CUDA events)")
+    return dict(ms=ms, plain_ms=ms_plain, bound_ms=bound, library_ms=ms_lib)
+
+
+def tile_scatter_worst_case(st, card, check):
+    """``tile_scatter_sum`` where every pixel of the render's tiles names
+    an instance of its own (the most distinct instances a tile can name,
+    its pixel count: one pass of the counting sort per 32), checked
+    bit-equal to its plain version on the CPU and timed by device time
+    beside one pass's shapes and ``index_add_``."""
+    import torch
+    from diff_gaussian_rasterization_tpu_torch.ops.kernels import render
+    ucross = st["out_f"][:, 8]
+    n_tiles, q = ucross.shape
+    dev = ucross.device
+    start = torch.arange(n_tiles, dtype=torch.int32, device=dev) * q
+    stop = start + q
+    n_inst = n_tiles * q
+    midx = (start[:, None] + torch.arange(q, dtype=torch.int32,
+                                          device=dev)).contiguous()
+    got = render.tile_scatter_sum(midx, ucross, start, stop, n_inst)
+    want = render.tile_scatter_sum_reference(
+        midx.cpu(), ucross.cpu(), start.cpu(), stop.cpu(), n_inst)
+    check(torch.equal(got[0].cpu(), want[0])
+          and torch.equal(got[1].cpu(), want[1]),
+          f"tile_scatter_sum with {q} instances a tile ({q // 32} passes) "
+          "equals its plain version on the CPU bit for bit")
+    ms = device_ms(lambda: render.tile_scatter_sum(midx, ucross, start,
+                                                   stop, n_inst))
+    keys = midx.reshape(-1).to(torch.int64)
+    vals = ucross.reshape(-1)
+    ms_lib = device_ms(lambda: torch.zeros(n_inst, device=dev).index_add_(
+        0, keys, vals))
+    log(f"[time] {card}: tile_scatter_sum worst case, every one of "
+        f"{n_tiles} x {q} pixels naming its own instance ({q // 32} passes "
+        f"a tile): {ms:.4f} ms device time, index_add_ {ms_lib:.4f} ms")
+
+
+def render_bwd_times(tag, st, core_kw, card, plain_iters=2):
+    """``render_bwd`` at one render's shapes, as the main path launches it
+    (each pixel stopped at the forward's n_contrib) and walking the whole
+    segment (an n_contrib of INT_MAX), by CUDA events; its plain version; its bound; and
+    the (instance, pixel) pairs the forward walks, the pairs up to each
+    pixel's last contributor, the pairs the kernel tests (its counter
+    build) and the contributions."""
+    import torch
+    from diff_gaussian_rasterization_tpu_torch.ops.kernels import render
+    table, binn, pix, out_k = st["table"], st["binn"], st["pix"], st["out_k"]
+    start, stop = binn.tile_start, binn.tile_stop
+    n_tiles, q = st["gt_tiles"].shape
+    rows_buf = torch.zeros_like(st["rows_k"])
+    run = lambda ncon: render.launch_render_bwd(
+        table, start, stop, pix, rows_buf, **core_kw, n_contrib=ncon)
+    ms = time_ms(lambda: run(out_k.n_contrib), iters=20)
+    whole = torch.full_like(out_k.n_contrib, torch.iinfo(torch.int32).max)
+    ms_walk = time_ms(lambda: run(whole), iters=20)
+    ms_plain = time_ms(lambda: render.core_bwd_reference(
+        table, start, stop, pix, **core_kw), iters=plain_iters, warmup=1)
+    pixmask = render.pixel_coords(n_tiles, core_kw["tiles_x"],
+                                  core_kw["cfg"].tile_h,
+                                  core_kw["cfg"].tile_w, core_kw["height"],
+                                  core_kw["width"], table.device)[2]
+    _, _, finfo = render_fwd_bound_ms(out_k, start, stop, pixmask)
+    to_last = int(torch.where(pixmask, out_k.n_contrib.to(torch.int64),
+                              torch.zeros_like(pixmask, dtype=torch.int64))
+                  .sum())
+    tested = torch.zeros(1, dtype=torch.int64, device=table.device)
+    render.launch_render_bwd(table, start, stop, pix, rows_buf, **core_kw,
+                             n_contrib=out_k.n_contrib, pairs=tested)
+    n_seg = int((stop - start).sum())
+    bound, by, binfo = render_bwd_bound_ms(finfo["contributions"], n_seg,
+                                           n_tiles, q)
+    log(f"[time] {card}: render_bwd ({tag}) kernel {ms:.4f} ms stopped at "
+        f"n_contrib, {ms_walk:.4f} ms walking the whole segment (bound "
+        f"{bound:.4f} ms by {by}: {json.dumps(binfo)}), plain version "
+        f"{ms_plain:.3f} ms; pairs tested {int(tested)}, "
+        f"{to_last} up to each pixel's last contributor, {finfo['pairs']} "
+        f"walked by the forward, {finfo['contributions']} contributions")
+    return dict(ms=ms, plain_ms=ms_plain, bound_ms=bound, bound_by=by,
+                library_ms=None)
 
 
 def loss_of(out, wc):
@@ -673,8 +850,8 @@ def tracking_path(st, dev, check):
     eye = ts.camera.viewmatrix
     err_before = float((ts.view0 - eye).abs().max())
     n_dual = ts.tcfg.coarse_iters + ts.tcfg.iters
-    want = dict(render_fwd=0, segment_sum=n_dual, render_bwd=0,
-                segment_sum_rows=n_dual, render_jvp=n_dual)
+    want = dict(render_fwd=0, tile_scatter_sum=n_dual, segment_sum=0,
+                render_bwd=0, segment_sum_rows=n_dual, render_jvp=n_dual)
     st["counts"], st["pose_err"] = {}, {}
     for variant in ("light", "full"):
         vcfg = st["variants"][variant]["cfg"]
@@ -912,13 +1089,10 @@ def main():
                                  check)
     out_k, pix, rows_k = bench["out_k"], bench["pix"], bench["rows_k"]
 
-    # segment_sum on the main path's pixel-level inputs: the per-pixel
-    # ucross (not a CoreOutputs field) from one more raw launch
-    out_f = torch.empty((gt_tiles.shape[0], 9, cfg.tile_px), device=dev)
-    out_i = torch.empty((gt_tiles.shape[0], 3, cfg.tile_px),
-                        dtype=torch.int32, device=dev)
-    render.launch_render_fwd(table, binn.tile_start, binn.tile_stop,
-                             gt_tiles, out_f, out_i, **core_kw)
+    # segment_sum, the dense oracle's per-Gaussian reduction (the render
+    # path no longer runs it), on the forward's pixel-level inputs sorted
+    # by midx: the sorted scatter it ran there before tile_scatter_sum
+    out_f, out_i = bench["out_f"], bench["out_i"]
     ucross = out_f[:, 8].reshape(-1)
     keys = out_i[:, 2].reshape(-1).to(torch.int64)
     keys = torch.where(keys >= 0, keys, torch.full_like(keys, table.shape[0]))
@@ -963,11 +1137,12 @@ def main():
         f"row width {rows_fwd}")
     check(counts["render_fwd"] == renders,
           "one render_fwd launch per render on the main path")
-    check(counts["segment_sum"] == renders
+    check(counts["tile_scatter_sum"] == renders
+          and counts["segment_sum"] == 0
           and counts["segment_sum_rows"] == renders
           and rows_fwd == {2: renders},
-          "one segment_sum and one segment_sum_rows (F = 2) launch per render "
-          "on the main path")
+          "one tile_scatter_sum and one segment_sum_rows (F = 2) launch and "
+          "no segment_sum launch per render on the main path")
     for i, o in enumerate([out_a] + model_outs):
         finite = all(bool(torch.isfinite(getattr(o, f).float()).all())
                      for f in ("color", "depth", "depth_median", "depth_var",
@@ -1015,12 +1190,13 @@ def main():
     log(f"[main] 2 forward + backward steps, launches {counts_fb}, "
         f"segment_sum_rows by row width {rows_fb}")
     check(all(counts_fb[k] == 2 for k in ("render_fwd", "render_bwd",
-                                           "segment_sum"))
+                                           "tile_scatter_sum"))
+          and counts_fb["segment_sum"] == 0
           and counts_fb["segment_sum_rows"] == 4
           and rows_fb == {2: 2, 12: 2},
-          "one render_fwd, render_bwd and segment_sum and two "
-          "segment_sum_rows (F = 2 and 12) launches per forward + backward "
-          "step")
+          "one render_fwd, render_bwd and tile_scatter_sum, two "
+          "segment_sum_rows (F = 2 and 12) and no segment_sum launches per "
+          "forward + backward step")
     check(all(bool(torch.isfinite(v).all()) and float(v.abs().max()) > 0
               for v in g_a.values()),
           f"finite, non-zero gradients for {sorted(g_a)}")
@@ -1033,7 +1209,16 @@ def main():
     om, okw, ocam = small_scene(p=72, h=24, w=32, seed=13, sh_degree=1,
                                 device=dev)
     g_ras = grads_of(ras.rasterize, om, ocam, ocfg, okw, wc)
+    # the oracle's own path: its per-Gaussian sums are the one caller of
+    # scatter_sum, and so of the segment_sum kernel
+    render.reset_launches()
     g_or = grads_of(render_oracle, om, ocam, ocfg, okw, wc)
+    torch.cuda.synchronize()
+    counts_or = dict(render.launches)
+    log(f"[main] the dense oracle's forward + backward, launches {counts_or}")
+    check(counts_or["segment_sum"] == 1 and counts_or["render_fwd"] == 0,
+          "one segment_sum launch (its per-Gaussian sums) and no render_fwd "
+          "per oracle render")
     err_or, ratio_or = grads_close(g_ras, g_or, 5e-4, 2e-5)
     # the card against the CPU path in float64 (the float32 CPU path and
     # the card each carry their own float32 error, reported beside it)
@@ -1102,11 +1287,13 @@ def main():
         f"losses {losses}; launches {counts_map}, segment_sum_rows by row "
         f"width {rows_map}")
     check(all(counts_map[k] == 5 for k in ("render_fwd", "render_bwd",
-                                           "segment_sum"))
+                                           "tile_scatter_sum"))
+          and counts_map["segment_sum"] == 0
           and counts_map["segment_sum_rows"] == 10
           and rows_map == {2: 5, 12: 5},
-          "one render_fwd, render_bwd and segment_sum and two "
-          "segment_sum_rows (F = 2 and 12) launches per map_step")
+          "one render_fwd, render_bwd and tile_scatter_sum, two "
+          "segment_sum_rows (F = 2 and 12) and no segment_sum launches per "
+          "map_step")
     check(losses[-1] < losses[0], "the loss after five map steps is below "
                                   "step 0's")
     check(all(bool(torch.isfinite(getattr(model, f)).all())
@@ -1157,16 +1344,12 @@ def main():
     log(f"[time] {card}: whole forward rasterize {ms_ras:.3f} ms, "
         f"preprocess + binning {ms_front:.3f} ms")
 
-    rows_buf = torch.zeros_like(rows_k)
-    start, stop = binn.tile_start, binn.tile_stop
-    n_tiles, q = gt_tiles.shape
-    ms_bwd = time_ms(lambda: render.launch_render_bwd(
-        table, start, stop, pix, rows_buf, **core_kw), iters=20)
-    ms_bwd_plain = time_ms(lambda: render.core_bwd_reference(
-        table, start, stop, pix, **core_kw), iters=2, warmup=1)
-    n_seg_inst = int((stop - start).sum())
-    bound_bwd, by_bwd, bbinfo = render_bwd_bound_ms(
-        binfo["contributions"], n_seg_inst, n_tiles, q)
+    scatter_t = {"100k": tile_scatter_times("100k", bench, card),
+                 "500k": tile_scatter_times("500k", mapped, card)}
+    tile_scatter_worst_case(bench, card, check)
+    bwd_t = {"100k": render_bwd_times("100k", bench, core_kw, card),
+             "500k": render_bwd_times("500k", mapped, core_kw, card,
+                                      plain_iters=1)}
     rows_t = {"100k": segment_sum_rows_times("100k", rows_k, binn, card),
               "500k": segment_sum_rows_times(
                   "500k", mapped["rows_k"], mapped["binn"], card),
@@ -1190,9 +1373,6 @@ def main():
         f"({device_ms(u_new):.4f} ms device time), the sorted scatter it "
         f"replaced {time_ms(u_old, iters=50):.4f} ms "
         f"({device_ms(u_old):.4f} ms device time)")
-    log(f"[time] {card}: render_bwd kernel {ms_bwd:.4f} ms (bound "
-        f"{bound_bwd:.4f} ms by {by_bwd}: {json.dumps(bbinfo)}), plain "
-        f"version {ms_bwd_plain:.3f} ms")
     fwd_bwd = lambda: grads_of(bench_render, means, cam, cfg, kw, wc)
     ms_fb = time_ms(fwd_bwd, iters=10)
     ms_map = time_ms(lambda: map_step(model, opt, dstate, *map_args),
@@ -1224,9 +1404,9 @@ def main():
     jvp_entries = tracking_times(trk, dev, card)
 
     # the largest errors over both scales' comparisons
-    err_fwd, err_bwd, err_rows, err_u = (
+    err_fwd, err_bwd, err_rows, err_u, err_ts = (
         max(bench[k], mapped[k])
-        for k in ("err_fwd", "err_bwd", "err_rows", "err_u"))
+        for k in ("err_fwd", "err_bwd", "err_rows", "err_u", "err_ts"))
     kernels = [
         dict(name="render_fwd", route="cuda",
              source="diff_gaussian_rasterization_tpu_torch/ops/kernels/csrc/"
@@ -1236,23 +1416,39 @@ def main():
              launches=counts["render_fwd"], max_abs_err=err_fwd,
              ms=ms_fwd, plain_ms=ms_plain, bound_ms=bound_fwd,
              bound_by=by_fwd, library_ms=None),
+    ] + [dict(name=name, route="cuda",
+              source="diff_gaussian_rasterization_tpu_torch/ops/kernels/"
+                     "csrc/render_fwd.cu",
+              replaces="diff_gaussian_rasterization_tpu/ops/kernels/"
+                       "render_pallas.py:390",
+              launches=n, max_abs_err=err_ts, bound_by="bytes",
+              **scatter_t[tag])
+         # the renders of the forward; the map steps' renders
+         for name, tag, n in (
+             ("tile_scatter_sum", "100k", counts["tile_scatter_sum"]),
+             ("tile_scatter_sum_500k", "500k",
+              counts_map["tile_scatter_sum"]))
+         ] + [
+        # the dense oracle's per-Gaussian sums, on its own path
         dict(name="segment_sum", route="cuda",
              source="diff_gaussian_rasterization_tpu_torch/ops/kernels/csrc/"
                     "render_fwd.cu",
              replaces="diff_gaussian_rasterization_tpu/ops/kernels/"
                       "render_pallas.py:390",
-             launches=counts["segment_sum"], max_abs_err=err_seg,
+             launches=counts_or["segment_sum"], max_abs_err=err_seg,
              ms=ms_seg, plain_ms=ms_seg_plain, bound_ms=bound_seg,
              bound_by="bytes", library_ms=ms_seg_lib),
-        dict(name="render_bwd", route="cuda",
-             source="diff_gaussian_rasterization_tpu_torch/ops/kernels/csrc/"
-                    "render_bwd.cu",
-             replaces="diff_gaussian_rasterization_tpu/ops/kernels/"
-                      "render_pallas.py:717",
-             launches=counts_fb["render_bwd"], max_abs_err=err_bwd,
-             ms=ms_bwd, plain_ms=ms_bwd_plain, bound_ms=bound_bwd,
-             bound_by=by_bwd, library_ms=None),
     ] + [dict(name=name, route="cuda",
+              source="diff_gaussian_rasterization_tpu_torch/ops/kernels/"
+                     "csrc/render_bwd.cu",
+              replaces="diff_gaussian_rasterization_tpu/ops/kernels/"
+                       "render_pallas.py:717",
+              launches=n, max_abs_err=err_bwd, **bwd_t[tag])
+         # the forward + backward steps; the map steps
+         for name, tag, n in (
+             ("render_bwd", "100k", counts_fb["render_bwd"]),
+             ("render_bwd_500k", "500k", counts_map["render_bwd"]))
+         ] + [dict(name=name, route="cuda",
               source="diff_gaussian_rasterization_tpu_torch/ops/kernels/"
                      "csrc/render_bwd.cu",
               replaces="diff_gaussian_rasterization_tpu/ops/kernels/"

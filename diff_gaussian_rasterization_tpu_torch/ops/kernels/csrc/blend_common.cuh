@@ -1,14 +1,15 @@
-// What the forward and backward tile kernels share: the launch parameters,
-// each thread's pixels, and the expressions of the test that decides, for
-// one (instance, pixel) pair, whether the instance is skipped, contributes,
-// or ends the pixel.  Both kernels evaluate that test in this one
-// expression order, so the backward walks exactly the pairs the forward
-// blended: a pixel on a threshold terminates at the same instance in both
-// passes.
+// What the tile kernels share: the launch parameters, the forward's pixels
+// per thread, the expressions of the test that decides, for one (instance,
+// pixel) pair, whether the instance is skipped, contributes, or ends the
+// pixel, and the culling box outside which that test always skips.  Every
+// kernel evaluates the test in this one expression order, so the backward
+// walks exactly the pairs the forward blended: a pixel on a threshold
+// terminates at the same instance in every pass.
 
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 namespace blend {
 
@@ -62,6 +63,50 @@ __device__ __forceinline__ float splat_power(const Splat& g, float dx,
 __device__ __forceinline__ float splat_alpha(const Splat& g, float G,
                                              const Params& prm) {
   return fminf(prm.alpha_cap, g.op * G);
+}
+
+// Relative slack of cull_box against float32 rounding, and its absolute
+// widening in pixels (render.py's cull_extent mirrors both).
+constexpr float kCullRel = 2e-5f;
+constexpr float kCullAbs = 1e-2f;
+
+// The box (x0, x1, y0, y1) outside which the splat's alpha is below
+// alpha_min at every pixel.  alpha >= alpha_min needs
+// power >= -tau, tau = ln(opacity / alpha_min), i.e. the quadratic form
+// A dx^2 + 2 B dx dy + C dy^2 <= 2 tau, whose ellipse has the half-extents
+// sqrt(2 tau C / det) and sqrt(2 tau A / det), det = A C - B^2.  The
+// kernels' float32 power, expf and product each round; the box is taken
+// for the form with A, C shrunk and |B| grown by kCullRel and tau grown by
+// kCullRel, far more than that rounding, then widened by kCullRel and
+// kCullAbs pixels.  Empty when opacity < alpha_min (then opacity * G <
+// alpha_min for every G <= 1); unbounded when the conic is not positive
+// definite.  Every comparison is written so that a NaN leaves the box
+// unbounded, as the per-pair test would not skip such a pair either.  So a
+// kernel may skip every pair whose pixel lies outside the box: the blend
+// would skip it too.
+__device__ __forceinline__ float4 cull_box(const float* f, float alpha_min) {
+  const float x = f[0], y = f[1], op = f[5];
+  const float inf = CUDART_INF_F;
+  if (op < alpha_min) return make_float4(inf, -inf, inf, -inf);
+  const float tau2 =
+      2.f * logf(op / alpha_min) * (1.f + kCullRel) + kCullRel;
+  const float a = f[2] * (1.f - kCullRel);
+  const float c = f[4] * (1.f - kCullRel);
+  const float b = fabsf(f[3]) * (1.f + kCullRel);
+  const float det = a * c - b * b;
+  if (!(a > 0.f && c > 0.f && det > 0.f)) {
+    return make_float4(-inf, inf, -inf, inf);
+  }
+  const float rx = sqrtf(tau2 * c / det) * (1.f + kCullRel) + kCullAbs;
+  const float ry = sqrtf(tau2 * a / det) * (1.f + kCullRel) + kCullAbs;
+  return make_float4(x - rx, x + rx, y - ry, y + ry);
+}
+
+// Whether a culling box meets the pixel box [x0, x1] x [y0, y1] (an empty
+// pixel box, x0 > x1, meets nothing).
+__device__ __forceinline__ bool box_meets(const float4& b, float x0, float x1,
+                                          float y0, float y1) {
+  return !(b.x > x1 || b.y < x0 || b.z > y1 || b.w < y0);
 }
 
 }  // namespace blend

@@ -28,25 +28,58 @@
 //   d_depth_var = 2 S_var
 // The depth-variance and median rows go to the pose-stopped depth copy
 // (the caller adds them into column 10 of the feature gradient).
-//
-// Determinism without atomics.  The tile's segment is staged in batches of
-// kBatch instances.  For each instance, every thread sums its own pixels'
-// 12 terms, each warp reduces with a fixed __shfl_down_sync tree, lane 0
-// puts the warp's 12 partials in shared memory, and after one barrier one
-// thread per instance adds the 8 warp partials in warp order and writes
-// the row.  Each instance lies in exactly one tile, so each row has one
-// writer.  A block-wide vote ends the tile once every pixel has
-// terminated; the wrapper zero-fills rows, so the instances never reached
-// (and culled instances, and the budget's unused tail) keep zero rows.
 // want_med / want_var = 0 skip those sums and leave their columns zero.
 //
 // What bounds it on an H100.  The least work is the pair test and ~58 FP32
 // operations per contributing pair, ~1.9 G at the bench scale, ~29 us at
 // 67 TFLOP/s; the bytes (table, pixel constants, rows) are ~53 MB, ~16 us.
-// So operations bound it.  This simple design tests every pair of the
-// forward's walk, and adds the per-instance warp reductions (60 shuffles
-// per warp, skipped by a warp vote when no lane's pixel touched the
-// instance), and leaves register blocking and cp.async staging for later.
+// So operations bound it: the pairs a kernel tests beyond the
+// contributions, and the per-instance reductions, are its overhead.
+//
+// The design for this card:
+// - Pixels.  256 threads a block, up to four pixels a thread (PPT).  Each
+//   warp owns PPT compact 8x4 sub-patches (a 16x8 region of a 32x32 tile),
+//   lane l pixel l of each; a tile that does not divide into 8x4 patches
+//   falls back to the forward's map (pixel threadIdx.x + k * 256).
+//   bwd_tile_pixel below is that map; render.py's bwd_pixel_map mirrors it
+//   and render_bwd_pixel_map exports it for the checks.
+// - Exact culling.  A pair with alpha < alpha_min adds nothing to any row,
+//   so skipping it leaves every row as it was.  Each staged instance's
+//   blend_common.cuh cull_box is computed once a round; each warp takes
+//   the round 32 instances at a time: every lane tests one instance's box
+//   against the warp's PPT sub-patch boxes (the live pixels' bounding
+//   boxes), one ballot picks the instances that meet any, and for those
+//   only the sub-patches they meet run the per-pair test.
+// - Stop at the last contributor.  The forward's n_contrib (segment-local,
+//   1-based) is each pixel's walk limit: nothing after a pixel's last
+//   contributor adds to any row.  A sub-patch drops out past its pixels'
+//   largest limit, the block past the tile's.
+// - Reduction.  For each instance that any lane of the warp touched (a
+//   warp vote), the warp reduces its lanes' 12 sums with a reduce-scatter
+//   butterfly (13 shuffles: 12 -> 6 -> 3 -> 2 -> 1 values a lane, then a
+//   last exchange), and 12 lanes put the warp's partial row in shared
+//   memory; a bit per (warp, instance) says which partials exist.  After
+//   the round, one thread per instance adds the warps' partials in warp
+//   order and writes the row.  The order is fixed, so the rows are
+//   bit-reproducible without atomics; each instance lies in one tile, so
+//   each row has one writer.  The wrapper zero-fills rows, so the
+//   instances never reached (past the tile's walk, culled by the binning,
+//   the budget's unused tail) keep zero rows.
+// - Fused multiply-adds in the twelve per-instance sums only.  The walk's
+//   decisions and T keep the forward's expressions, so the backward ends
+//   every pixel where the forward did; w, s, the prefix and d_alpha keep
+//   the rounding of the plain version's expressions, so that the suffix
+//   tot_all - pre cancels as it does there (fused, the prefix drifts from
+//   the forward's totals, and the card's gradients left the CPU path's
+//   tolerance on a small scene).
+// - Staging.  Rounds of kBatch instances through a two-stage ring with
+//   cp.async: round r + 1 loads while round r is reduced; a feature row is
+//   padded to 12 floats so the blend reads it as three 16-byte vectors.
+// - Occupancy.  __launch_bounds__(kThreads, kMinBlocks): two blocks an SM
+//   at 117 registers, no spill (the -Xptxas -v report, which
+//   chip_smoke.py prints); three blocks spill and ran no faster.
+// - pairs (optional, null on the main path): a variant of the kernel adds
+//   the (instance, pixel) pairs it tested, for the report beside the bound.
 //
 // Numerics.  Built without --use_fast_math and with --fmad=false, like the
 // forward; the plain version (core_bwd_reference) sums over pixels and
@@ -77,6 +110,7 @@
 #include <climits>
 #include <cstdint>
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include "blend_common.cuh"
@@ -88,39 +122,148 @@ using blend::kThreads;
 using blend::Params;
 
 constexpr int kWarps = kThreads / 32;
-constexpr int kBatch = 32;  // instances staged (and reduced) per round
-constexpr int kPix = 10;    // per-pixel constant rows
-constexpr int kRow = 12;    // gradient columns
+constexpr int kBatch = 64;     // instances staged (and reduced) per round
+constexpr int kFeatPad = 12;   // floats of a staged feature row
+constexpr int kPix = 10;       // per-pixel constant rows
+constexpr int kRow = 12;       // gradient columns
+constexpr int kMinBlocks = 2;  // resident blocks an SM
 constexpr unsigned kFull = 0xffffffffu;
 
-template <int PPT>  // pixels per thread
-__global__ void __launch_bounds__(kThreads)
+// Tile pixel k of lane `lane` of warp `warp` (q when it has none), for PPT
+// pixels a thread.  When the tile divides into 8x4 patches, lane l owns
+// pixel (l % 8, l / 8) of each of its warp's PPT patches: with four pixels
+// a thread and an even number of patches across and down, the 2x2 block of
+// patches (bx, by) = (warp % (across / 2), warp / (across / 2)); otherwise
+// the PPT consecutive patches warp * PPT + k, row-major.  Any other tile
+// takes the forward's map, pixel threadIdx.x + k * kThreads.
+template <int PPT>
+__host__ __device__ __forceinline__ int bwd_tile_pixel(int tile_w, int tile_h,
+                                                        int warp, int lane,
+                                                        int k) {
+  const int q = tile_w * tile_h;
+  if ((tile_w & 7) != 0 || (tile_h & 3) != 0) {
+    const int qi = warp * 32 + lane + k * kThreads;
+    return qi < q ? qi : q;
+  }
+  const int across = tile_w >> 3, down = tile_h >> 2;
+  int pxp, pyp;
+  if (PPT == 4 && (across & 1) == 0 && (down & 1) == 0) {
+    const int half = across >> 1;
+    pxp = 2 * (warp % half) + (k & 1);
+    pyp = 2 * (warp / half) + (k >> 1);
+  } else {
+    const int patch = warp * PPT + k;
+    pxp = patch % across;
+    pyp = patch / across;
+  }
+  if (pyp >= down) return q;
+  return (pyp * 4 + (lane >> 3)) * tile_w + pxp * 8 + (lane & 7);
+}
+
+// Start one round's feature copies into a stage of the ring, 4 bytes each
+// into rows padded to kFeatPad floats, and commit them as one group.
+__device__ __forceinline__ void stage_round(float* dst,
+                                            const float* __restrict__ feat,
+                                            int b0, int n) {
+  const float* src = feat + (size_t)b0 * kFeat;
+  for (int i = threadIdx.x; i < n * kFeat; i += kThreads) {
+    const int r = i / kFeat;
+    __pipeline_memcpy_async(dst + r * kFeatPad + (i - r * kFeat), src + i,
+                            sizeof(float));
+  }
+  __pipeline_commit();
+}
+
+// The warp's sums acc[12] reduced over its 32 lanes by a reduce-scatter
+// butterfly: lane l ends with the warp's total of column bwd_column(l)
+// (or of a zero pad when that is -1).
+__device__ __forceinline__ int bwd_column(int lane) {
+  const int idx = ((lane >> 2) & 1) * 2 + ((lane >> 1) & 1);
+  if (idx == 3) return -1;
+  return ((lane >> 4) & 1) * 6 + ((lane >> 3) & 1) * 3 + idx;
+}
+
+__device__ __forceinline__ float reduce_scatter12(const float (&acc)[kRow],
+                                                  int lane) {
+  const bool h16 = lane & 16, h8 = lane & 8, h4 = lane & 4, h2 = lane & 2;
+  float a6[6];
+#pragma unroll
+  for (int c = 0; c < 6; ++c) {
+    const float send = h16 ? acc[c] : acc[c + 6];
+    const float keep = h16 ? acc[c + 6] : acc[c];
+    a6[c] = keep + __shfl_xor_sync(kFull, send, 16);
+  }
+  float a3[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float send = h8 ? a6[c] : a6[c + 3];
+    const float keep = h8 ? a6[c + 3] : a6[c];
+    a3[c] = keep + __shfl_xor_sync(kFull, send, 8);
+  }
+  // three values and a zero pad: the low half keeps {0, 1}, the high half
+  // {2, pad}
+  const float s0 = h4 ? a3[0] : a3[2];
+  const float s1 = h4 ? a3[1] : 0.f;
+  const float k0 = h4 ? a3[2] : a3[0];
+  const float k1 = h4 ? 0.f : a3[1];
+  const float a2_0 = k0 + __shfl_xor_sync(kFull, s0, 4);
+  const float a2_1 = k1 + __shfl_xor_sync(kFull, s1, 4);
+  const float send = h2 ? a2_0 : a2_1;
+  const float keep = h2 ? a2_1 : a2_0;
+  const float a1 = keep + __shfl_xor_sync(kFull, send, 2);
+  return a1 + __shfl_xor_sync(kFull, a1, 1);
+}
+
+template <int PPT, bool kCount>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 render_bwd_kernel(const float* __restrict__ feat,
                   const int* __restrict__ tile_start,
                   const int* __restrict__ tile_stop,
-                  const float* __restrict__ pix, float* __restrict__ rows,
-                  Params prm, int want_med, int want_var) {
-  __shared__ float s_feat[kBatch * kFeat];
+                  const float* __restrict__ pix,
+                  const int* __restrict__ n_contrib, long long ncon_stride,
+                  float* __restrict__ rows, Params prm, int want_med,
+                  int want_var, unsigned long long* __restrict__ pairs) {
+  __shared__ __align__(16) float s_feat[2][kBatch * kFeatPad];
+  __shared__ float4 s_box[kBatch];
   __shared__ float s_part[kWarps][kBatch][kRow];
+  __shared__ unsigned s_touch[kWarps][kBatch / 32];
+  __shared__ float4 s_pbox[kWarps][PPT];  // live pixels' box of a sub-patch
+  __shared__ int s_plim[kWarps][PPT];     // largest walk limit there
+  __shared__ int s_wlim[kWarps];
 
   const int t = blockIdx.x;
   const int q = prm.tile_w * prm.tile_h;
   const int start = tile_start[t];
-  const int stop = tile_stop[t];
+  const int seg = tile_stop[t] - start;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const int tx0 = (t % prm.tiles_x) * prm.tile_w;
+  const int ty0 = (t / prm.tiles_x) * prm.tile_h;
 
+  // per pixel: its walk limit (segment-local; 0: no pixel, or the pixel
+  // has ended), position, transmittance, prefix and constants
+  int lim[PPT];
   float px[PPT], py[PPT], T[PPT], pre[PPT];
   float pc0[PPT], pc1[PPT], pc2[PPT], pc3[PPT], pc4[PPT], pc5[PPT];
   float dLdd[PPT], gt[PPT], tot[PPT], dLdmed[PPT];
-  bool done[PPT];
+  int wlim = 0;
+  unsigned long long tested = 0;
 
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
-    done[k] = !blend::pixel_of(prm, t, k, px[k], py[k]);
+    const int qi = bwd_tile_pixel<PPT>(prm.tile_w, prm.tile_h, warp, lane,
+                                       k);
+    const int pxi = tx0 + qi % prm.tile_w;
+    const int pyi = ty0 + qi / prm.tile_w;
+    const bool live = qi < q && pxi < prm.width && pyi < prm.height;
+    lim[k] = 0;
+    if (live) {
+      lim[k] = min(n_contrib[(size_t)t * ncon_stride + qi], seg);
+    }
+    px[k] = (float)pxi;
+    py[k] = (float)pyi;
     T[k] = 1.f;
     pre[k] = 0.f;
-    const int qi = threadIdx.x + k * kThreads;
     const float* pp = pix + (size_t)t * kPix * q + (qi < q ? qi : 0);
     pc0[k] = pp[0 * q];
     pc1[k] = pp[1 * q];
@@ -132,81 +275,139 @@ render_bwd_kernel(const float* __restrict__ feat,
     gt[k] = pp[7 * q];
     tot[k] = pp[8 * q];
     dLdmed[k] = pp[9 * q];
+    // the sub-patch's box over the pixels that walk at all
+    const bool walks = lim[k] > 0;
+    const int x0 = __reduce_min_sync(kFull, walks ? pxi : INT_MAX);
+    const int x1 = __reduce_max_sync(kFull, walks ? pxi : INT_MIN);
+    const int y0 = __reduce_min_sync(kFull, walks ? pyi : INT_MAX);
+    const int y1 = __reduce_max_sync(kFull, walks ? pyi : INT_MIN);
+    const int plim = __reduce_max_sync(kFull, lim[k]);
+    if (lane == 0) {
+      s_pbox[warp][k] = make_float4((float)x0, (float)x1, (float)y0,
+                                    (float)y1);
+      s_plim[warp][k] = plim;
+    }
+    wlim = max(wlim, plim);
   }
-
-  for (int b0 = start; b0 < stop; b0 += kBatch) {
-    int live = 0;
+  if (lane == 0) s_wlim[warp] = wlim;
+  __syncthreads();
+  int tile_lim = 0;
 #pragma unroll
-    for (int k = 0; k < PPT; ++k) live |= !done[k];
-    // barrier + vote: also orders the previous round's shared reads
-    // before this round's writes
-    if (__syncthreads_count(live) == 0) break;
+  for (int w = 0; w < kWarps; ++w) tile_lim = max(tile_lim, s_wlim[w]);
+  const int end = start + tile_lim;  // the block walks [start, end)
 
-    const int n = min(kBatch, stop - b0);
-    const float* src = feat + (size_t)b0 * kFeat;
-    for (int i = threadIdx.x; i < n * kFeat; i += kThreads) s_feat[i] = src[i];
+  if (start < end) {
+    stage_round(s_feat[0], feat, start, min(kBatch, end - start));
+  }
+  int stage = 0;
+  for (int b0 = start; b0 < end; b0 += kBatch, stage ^= 1) {
+    // this round's copies have landed (for this thread's part of them);
+    // the barrier makes all parts visible and orders the last round's
+    // reads of the other stage, s_box, s_part and s_touch before the
+    // writes below
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    const int n = min(kBatch, end - b0);
+    if (b0 + kBatch < end) {
+      stage_round(s_feat[stage ^ 1], feat, b0 + kBatch,
+                  min(kBatch, end - b0 - kBatch));
+    }
+    const float* sf = s_feat[stage];
+    if (threadIdx.x < n) {
+      s_box[threadIdx.x] = blend::cull_box(sf + threadIdx.x * kFeatPad,
+                                           prm.alpha_min);
+    }
     __syncthreads();
 
-    for (int j = 0; j < n; ++j) {
-      const float* f = s_feat + j * kFeat;
-      const blend::Splat g = blend::load_splat(f);
-      const float cr = f[6], cg = f[7], cb = f[8], d = f[9];
-      const float d2 = d * d;
-      float acc[kRow];
+    for (int j0 = 0; j0 < n; j0 += 32) {
+      // which of the warp's sub-patches instance j0 + lane meets, among
+      // those that still walk at its position
+      unsigned meets = 0;
+      if (j0 + lane < n) {
+        const float4 b = s_box[j0 + lane];
+        const int loc = b0 - start + j0 + lane;
 #pragma unroll
-      for (int c = 0; c < kRow; ++c) acc[c] = 0.f;
-      int touched = 0;
-#pragma unroll
-      for (int k = 0; k < PPT; ++k) {
-        if (done[k]) continue;
-        const float dx = g.x - px[k];
-        const float dy = g.y - py[k];
-        const float power = blend::splat_power(g, dx, dy);
-        if (power > 0.f) continue;
-        const float G = expf(power);
-        const float alpha = blend::splat_alpha(g, G, prm);
-        if (alpha < prm.alpha_min) continue;
-        const float test_T = T[k] * (1.f - alpha);
-        if (test_T < prm.t_terminate) {
-          done[k] = true;
-          continue;
-        }
-        const float w = alpha * T[k];
-        const float s = cr * pc0[k] + cg * pc1[k] + cb * pc2[k] +
-                        d * pc3[k] + d2 * pc4[k] + pc5[k];
-        pre[k] += w * s;
-        const float d_alpha =
-            T[k] * s - (tot[k] - pre[k]) * (1.f / (1.f - alpha));
-        const float e = d_alpha * G;
-        acc[0] += e;
-        acc[1] += e * dx;
-        acc[2] += e * dy;
-        acc[3] += e * dx * dx;
-        acc[4] += e * dy * dy;
-        acc[5] += e * dx * dy;
-        acc[6] += w * pc0[k];
-        acc[7] += w * pc1[k];
-        acc[8] += w * pc2[k];
-        acc[9] += w * dLdd[k];
-        if (want_var) acc[10] += w * (d - gt[k]) * pc4[k];
-        if (want_med && T[k] > 0.5f && test_T < 0.5f) acc[11] += dLdmed[k];
-        T[k] = test_T;
-        touched = 1;
-      }
-      // fixed-order warp reduction; a warp none of whose pixels reached
-      // the instance has all-zero partials and skips it
-      if (__any_sync(kFull, touched)) {
-#pragma unroll
-        for (int c = 0; c < kRow; ++c) {
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            acc[c] += __shfl_down_sync(kFull, acc[c], off);
+        for (int k = 0; k < PPT; ++k) {
+          const float4 pb = s_pbox[warp][k];
+          if (loc < s_plim[warp][k] && blend::box_meets(b, pb.x, pb.y, pb.z,
+                                                        pb.w)) {
+            meets |= 1u << k;
+          }
         }
       }
-      if (lane == 0) {
+      unsigned todo = __ballot_sync(kFull, meets != 0);
+      unsigned touched_bits = 0;
+      while (todo) {
+        const int jj = __ffs(todo) - 1;
+        todo &= todo - 1;
+        const unsigned mj = __shfl_sync(kFull, meets, jj);
+        const int j = j0 + jj;
+        const int loc = b0 - start + j;
+        const float4* f4 = reinterpret_cast<const float4*>(sf + j * kFeatPad);
+        const float4 fa = f4[0];  // x, y, A, B
+        const float4 fb = f4[1];  // C, opacity, r, g
+        const float4 fc = f4[2];  // b, depth, depth_sgview, (pad)
+        const blend::Splat g{fa.x, fa.y, fa.z, fa.w, fb.x, fb.y};
+        const float cr = fb.z, cg = fb.w, cb = fc.x, d = fc.y;
+        const float d2 = d * d;
+        float acc[kRow];
 #pragma unroll
-        for (int c = 0; c < kRow; ++c) s_part[warp][j][c] = acc[c];
+        for (int c = 0; c < kRow; ++c) acc[c] = 0.f;
+        int touched = 0;
+#pragma unroll
+        for (int k = 0; k < PPT; ++k) {
+          if (!((mj >> k) & 1u)) continue;  // the same for the whole warp
+          if (loc >= lim[k]) continue;
+          if constexpr (kCount) ++tested;
+          const float dx = g.x - px[k];
+          const float dy = g.y - py[k];
+          const float power = blend::splat_power(g, dx, dy);
+          if (power > 0.f) continue;
+          const float G = expf(power);
+          const float alpha = blend::splat_alpha(g, G, prm);
+          if (alpha < prm.alpha_min) continue;
+          const float test_T = T[k] * (1.f - alpha);
+          if (test_T < prm.t_terminate) {
+            lim[k] = 0;
+            continue;
+          }
+          // w, s, the prefix and d_alpha in the forward's rounding (the
+          // suffix tot_all - pre then cancels as the forward's totals do);
+          // only the twelve per-instance terms in fused multiply-adds
+          // (__fmaf_rn stays an FFMA under --fmad=false)
+          const float w = alpha * T[k];
+          const float s = cr * pc0[k] + cg * pc1[k] + cb * pc2[k] +
+                          d * pc3[k] + d2 * pc4[k] + pc5[k];
+          pre[k] += w * s;
+          const float d_alpha =
+              T[k] * s - (tot[k] - pre[k]) * (1.f / (1.f - alpha));
+          const float e = d_alpha * G;
+          const float edx = e * dx, edy = e * dy;
+          acc[0] += e;
+          acc[1] += edx;
+          acc[2] += edy;
+          acc[3] = __fmaf_rn(edx, dx, acc[3]);
+          acc[4] = __fmaf_rn(edy, dy, acc[4]);
+          acc[5] = __fmaf_rn(edx, dy, acc[5]);
+          acc[6] = __fmaf_rn(w, pc0[k], acc[6]);
+          acc[7] = __fmaf_rn(w, pc1[k], acc[7]);
+          acc[8] = __fmaf_rn(w, pc2[k], acc[8]);
+          acc[9] = __fmaf_rn(w, dLdd[k], acc[9]);
+          if (want_var) acc[10] = __fmaf_rn(w * (d - gt[k]), pc4[k], acc[10]);
+          if (want_med && T[k] > 0.5f && test_T < 0.5f) acc[11] += dLdmed[k];
+          T[k] = test_T;
+          touched = 1;
+        }
+        // a warp none of whose pixels contributed has all-zero partials
+        // and leaves no partial row
+        if (__any_sync(kFull, touched)) {
+          const float v = reduce_scatter12(acc, lane);
+          const int c = bwd_column(lane);
+          if (c >= 0 && (lane & 1) == 0) s_part[warp][j][c] = v;
+          touched_bits |= 1u << jj;
+        }
       }
+      if (lane == 0) s_touch[warp][j0 >> 5] = touched_bits;
     }
     __syncthreads();
 
@@ -214,28 +415,65 @@ render_bwd_kernel(const float* __restrict__ feat,
       const int j = threadIdx.x;
       float sum[kRow];
 #pragma unroll
-      for (int c = 0; c < kRow; ++c) {
-        float v = 0.f;
-        for (int w = 0; w < kWarps; ++w) v += s_part[w][j][c];
-        sum[c] = v;
+      for (int c = 0; c < kRow; ++c) sum[c] = 0.f;
+      for (int w = 0; w < kWarps; ++w) {  // in warp order
+        if (!((s_touch[w][j >> 5] >> (j & 31)) & 1u)) continue;
+#pragma unroll
+        for (int c = 0; c < kRow; ++c) sum[c] += s_part[w][j][c];
       }
-      const float* f = s_feat + j * kFeat;
+      const float* f = sf + j * kFeatPad;
       const float A = f[2], B = f[3], C = f[4], op = f[5];
-      float* r = rows + (size_t)(b0 + j) * kRow;
-      r[0] = -op * (A * sum[1] + B * sum[2]);
-      r[1] = -op * (C * sum[2] + B * sum[1]);
-      r[2] = -0.5f * op * sum[3];
-      r[3] = -op * sum[5];
-      r[4] = -0.5f * op * sum[4];
-      r[5] = sum[0];
-      r[6] = sum[6];
-      r[7] = sum[7];
-      r[8] = sum[8];
-      r[9] = sum[9];
-      r[10] = 2.f * sum[10];
-      r[11] = sum[11];
+      float4* r = reinterpret_cast<float4*>(rows + (size_t)(b0 + j) * kRow);
+      r[0] = make_float4(-op * (A * sum[1] + B * sum[2]),
+                         -op * (C * sum[2] + B * sum[1]), -0.5f * op * sum[3],
+                         -op * sum[5]);
+      r[1] = make_float4(-0.5f * op * sum[4], sum[0], sum[6], sum[7]);
+      r[2] = make_float4(sum[8], sum[9], 2.f * sum[10], sum[11]);
     }
   }
+
+  if constexpr (kCount) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      tested += __shfl_down_sync(kFull, tested, off);
+    if (lane == 0 && tested != 0) atomicAdd(pairs, tested);
+  }
+}
+
+template <int PPT>
+cudaError_t launch_bwd(int n_tiles, cudaStream_t s, const float* feat,
+                       const int* tile_start, const int* tile_stop,
+                       const float* pix, const int* n_contrib,
+                       long long ncon_stride, float* rows, const Params& prm,
+                       int want_med, int want_var,
+                       unsigned long long* pairs) {
+  if (pairs != nullptr) {
+    render_bwd_kernel<PPT, true><<<n_tiles, kThreads, 0, s>>>(
+        feat, tile_start, tile_stop, pix, n_contrib, ncon_stride, rows, prm,
+        want_med, want_var, pairs);
+  } else {
+    render_bwd_kernel<PPT, false><<<n_tiles, kThreads, 0, s>>>(
+        feat, tile_start, tile_stop, pix, n_contrib, ncon_stride, rows, prm,
+        want_med, want_var, pairs);
+  }
+  return cudaGetLastError();
+}
+
+template <int PPT>
+__global__ void pixel_map_kernel(int tile_w, int tile_h, int* out) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 0; k < PPT; ++k)
+    out[threadIdx.x * PPT + k] =
+        bwd_tile_pixel<PPT>(tile_w, tile_h, warp, lane, k);
+}
+
+// Pixels a thread for a tile of q pixels (0: the tile is too large).
+int pixels_per_thread(int q) {
+  if (q <= kThreads) return 1;
+  if (q <= 2 * kThreads) return 2;
+  if (q <= 4 * kThreads) return 4;
+  return 0;
 }
 
 constexpr int kSumWarps = 8;  // warps a block, 32 Gaussians each
@@ -366,28 +604,54 @@ void launch_rows(const float* rows, const int* inv, const int* gauss_start,
 
 }  // namespace
 
+// rows [cap, 12] (zero-filled by the caller, 16-byte aligned) of the
+// backward blend.  n_contrib, each pixel's walk limit, is the forward's
+// [T, *] int32 with tile stride ncon_stride and pixel stride 1; pairs may
+// be null.
 extern "C" int render_bwd(const float* feat, const int* tile_start,
-                          const int* tile_stop, const float* pix, float* rows,
-                          int n_tiles, int tiles_x, int tile_w, int tile_h,
-                          int width, int height, float alpha_cap,
+                          const int* tile_stop, const float* pix,
+                          const int* n_contrib, long long ncon_stride,
+                          float* rows, int n_tiles, int tiles_x, int tile_w,
+                          int tile_h, int width, int height, float alpha_cap,
                           float alpha_min, float t_terminate, int want_med,
-                          int want_var, void* stream) {
+                          int want_var, unsigned long long* pairs,
+                          void* stream) {
   const Params prm{tiles_x, tile_w, tile_h, width, height,
                    alpha_cap, alpha_min, t_terminate};
-  const int q = tile_w * tile_h;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_tiles <= 0) return 0;
-  if (q <= kThreads) {
-    render_bwd_kernel<1><<<n_tiles, kThreads, 0, s>>>(
-        feat, tile_start, tile_stop, pix, rows, prm, want_med, want_var);
-  } else if (q <= 2 * kThreads) {
-    render_bwd_kernel<2><<<n_tiles, kThreads, 0, s>>>(
-        feat, tile_start, tile_stop, pix, rows, prm, want_med, want_var);
-  } else if (q <= 4 * kThreads) {
-    render_bwd_kernel<4><<<n_tiles, kThreads, 0, s>>>(
-        feat, tile_start, tile_stop, pix, rows, prm, want_med, want_var);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+  switch (pixels_per_thread(tile_w * tile_h)) {
+    case 1:
+      return static_cast<int>(launch_bwd<1>(
+          n_tiles, s, feat, tile_start, tile_stop, pix, n_contrib,
+          ncon_stride, rows, prm, want_med, want_var, pairs));
+    case 2:
+      return static_cast<int>(launch_bwd<2>(
+          n_tiles, s, feat, tile_start, tile_stop, pix, n_contrib,
+          ncon_stride, rows, prm, want_med, want_var, pairs));
+    case 4:
+      return static_cast<int>(launch_bwd<4>(
+          n_tiles, s, feat, tile_start, tile_stop, pix, n_contrib,
+          ncon_stride, rows, prm, want_med, want_var, pairs));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// out[thread * ppt + k] = render_bwd's tile pixel k of each of its
+// kThreads threads (tile_w * tile_h where it has none); ppt is 1, 2 or 4
+// as the tile's size gives it.
+extern "C" int render_bwd_pixel_map(int tile_w, int tile_h, int* out,
+                                    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (pixels_per_thread(tile_w * tile_h)) {
+    case 1: pixel_map_kernel<1><<<1, kThreads, 0, s>>>(tile_w, tile_h, out);
+      break;
+    case 2: pixel_map_kernel<2><<<1, kThreads, 0, s>>>(tile_w, tile_h, out);
+      break;
+    case 4: pixel_map_kernel<4><<<1, kThreads, 0, s>>>(tile_w, tile_h, out);
+      break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

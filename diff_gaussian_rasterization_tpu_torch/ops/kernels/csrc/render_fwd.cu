@@ -2,7 +2,7 @@
 //
 // Replaces the TPU kernel `_fwd_kernel` of the JAX package
 // (diff_gaussian_rasterization_tpu/ops/kernels/render_pallas.py:157, driven
-// by `core_fwd` there), and, in `segment_sum` below, the scatter of the
+// by `core_fwd` there), and, in `tile_scatter_sum` below, the scatter of the
 // per-pixel median-crossing statistics that follows it (render_pallas.py:390).
 //
 // What it computes.  One thread block per image tile.  The tile's instances
@@ -47,10 +47,42 @@
 // version's chunked cumprod, so pixels exactly on the t_terminate or 0.5
 // thresholds may flip.
 //
+// tile_scatter_sum: the per-instance median-crossing statistics,
+//   u_inst[i] = sum of ucross over the pixels whose midx is i,
+//   npix_inst[i] = the number of those pixels,
+// each sum taken in ascending pixel order (the order of index_add_ on the
+// CPU, so the two are bit-equal), and 0 for every instance no pixel names.
+// midx is global in the sorted stream but always lies in the pixel's own
+// tile segment [tile_start[t], tile_stop[t]) (a midx outside it is
+// dropped; the forward never writes one), so each tile reduces on its own,
+// with no global sort, one block per tile (256 threads, four pixels each,
+// for a 32x32 tile).  A tile's median crossings mostly belong to a few
+// large front splats (5,980 named instances for the bench scene's 816,000
+// crossing pixels in 836 tiles), so a block sums them in passes of up to
+// kFew = 32 instances: a pass takes out the next distinct instances its
+// pixels name in increasing order, one block-wide minimum a round, then a
+// counting sort puts those pixels' values into one bucket per instance, in
+// pixel order within each (warp-level ranks by __match_any_sync, a block
+// scan of the per-chunk counts), and one thread per instance sums its
+// bucket.  A run of L pixels costs L dependent adds, from loads that do
+// not wait on one another.  No float atomics.  A tile naming D distinct
+// instances takes D + ceil(D / 32) rounds (one barrier each) and
+// ceil(D / 32) counting sorts of its pixels, D <= the tile's pixels; at
+// the bench scene and the 500k mapping step no tile names more than 24
+// (one pass).  Bound by bytes: midx and ucross read once, the two outputs
+// written once (~8.9 MB at the bench scene, ~2.7 us at 3.35 TB/s); the
+// rounds, the counting sort and the longest run's chain of adds are the
+// kernel's overhead.  The caller zero-fills the outputs; a block writes
+// only the instances its pixels name.
+//
 // segment_sum: out[p] = sum of vals[j] (and of ivals[j]) over
 // j in [bounds[p], bounds[p+1]), one thread per segment, summed in order.
 // The caller sorts by key stably first, so the sum order is the input
 // order: bit-reproducible from run to run, unlike a scatter with atomics.
+// Left for the dense oracle's per-Gaussian sums, whose keys are not
+// tile-local.
+
+#include <climits>
 
 #include <cuda_runtime.h>
 
@@ -172,6 +204,164 @@ render_fwd_kernel(const float* __restrict__ feat,
   }
 }
 
+constexpr unsigned kAll = 0xffffffffu;
+constexpr int kFew = 32;  // distinct instances a pass sums
+constexpr int E = 4;      // pixels a thread
+
+// One block per tile, T threads: element e = threadIdx.x + m * T of the
+// n = E * T pixels is this thread's m-th.  __launch_bounds__(256, 8):
+// 32 registers (12 bytes spill), eight blocks an SM, so that a
+// 32x32-tiled frame's 836 tiles are resident at once (unbounded, fewer
+// blocks an SM ran slower).
+__global__ void __launch_bounds__(256, 8)
+tile_scatter_sum_kernel(const int* __restrict__ midx, long long midx_stride,
+                        const float* __restrict__ ucross,
+                        long long ucross_stride,
+                        const int* __restrict__ tile_start,
+                        const int* __restrict__ tile_stop, int q,
+                        float* __restrict__ u_inst,
+                        int* __restrict__ npix_inst) {
+  extern __shared__ float smem[];
+  __shared__ int s_wmin[2][256 / 32];
+  __shared__ int s_few[kFew];
+  __shared__ int s_wsum[256 / 32];
+  const int T = blockDim.x;
+  const int n = E * T;  // a power of two >= q, at least 128
+  float* s_val = smem;          // [n], by pixel
+  float* s_sorted = s_val + n;  // [n], by bucket, in pixel order in each
+  // per-(bucket, chunk) counts, then their offsets: kFew x n / 32 = n
+  int* s_cnt = reinterpret_cast<int*>(s_sorted + n);
+  static_assert(kFew == 32, "kFew x (n / 32) counts, E a thread");
+  const int nch = n / 32;
+  const int i = threadIdx.x;
+  const int lane = i & 31, warp = i >> 5;
+  const int t = blockIdx.x;
+  const int start = tile_start[t];
+  const int stop = tile_stop[t];
+
+  // each pixel's instance, local to the segment (-1: none)
+  int loc[E];
+  int named = 0;
+#pragma unroll
+  for (int m = 0; m < E; ++m) {
+    const int e = i + m * T;
+    loc[m] = -1;
+    if (e < q) {
+      const int mi = midx[(size_t)t * midx_stride + e];
+      if (mi >= start && mi < stop) {
+        loc[m] = mi - start;
+        s_val[e] = ucross[(size_t)t * ucross_stride + e];
+        named = 1;
+      }
+    }
+  }
+  if (__syncthreads_count(named) == 0) return;
+
+  // passes over the instances past `done`, up to kFew each; a pass's
+  // first round is a barrier, so the counts it zeroes are zero before the
+  // counting sort writes them, and the last pass's reads are over
+  for (int done = -1;;) {
+    for (int k = i; k < n; k += T) s_cnt[k] = 0;
+    // take out the next instances in increasing order, one block-wide
+    // minimum a round
+    int n_few = 0, prev = done;
+    for (; n_few < kFew; ++n_few) {
+      int mine = INT_MAX;
+#pragma unroll
+      for (int m = 0; m < E; ++m)
+        if (loc[m] > prev) mine = min(mine, loc[m]);
+      const int wmin = __reduce_min_sync(kAll, mine);
+      if (lane == 0) s_wmin[n_few & 1][warp] = wmin;
+      // one barrier a round: the two halves of s_wmin alternate
+      __syncthreads();
+      const int next = __reduce_min_sync(
+          kAll, lane < T / 32 ? s_wmin[n_few & 1][lane] : INT_MAX);
+      if (next == INT_MAX) break;
+      if (i == 0) s_few[n_few] = next;
+      prev = next;
+    }
+    __syncthreads();  // s_few is whole
+    // a counting sort of the pass's pixels into its n_few buckets, in
+    // pixel order within each: count each bucket's pixels per 32-pixel
+    // chunk, scan the kFew x nch counts in (bucket, chunk) order (E a
+    // thread), and place every value at its bucket's offset plus its rank
+    // in the chunk
+    int f[E], rank[E];
+#pragma unroll
+    for (int m = 0; m < E; ++m) {
+      f[m] = -1;
+      if (loc[m] > done && loc[m] <= prev) {
+        int a = 0, b = n_few;
+        while (a < b) {
+          const int mid = (a + b) >> 1;
+          if (s_few[mid] < loc[m]) {
+            a = mid + 1;
+          } else {
+            b = mid;
+          }
+        }
+        f[m] = a;
+      }
+      const unsigned same = __match_any_sync(kAll, f[m]);
+      rank[m] = __popc(same & ((1u << lane) - 1u));
+      // the chunk of element i + m * T is warp + m * (T / 32)
+      if (f[m] >= 0 && rank[m] == 0) {
+        s_cnt[f[m] * nch + warp + m * (T / 32)] = __popc(same);
+      }
+    }
+    __syncthreads();
+    int cnt[E], run = 0;
+#pragma unroll
+    for (int r = 0; r < E; ++r) {
+      cnt[r] = s_cnt[i * E + r];
+      run += cnt[r];
+    }
+    int incl = run;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(kAll, incl, off);
+      if (lane >= off) incl += v;
+    }
+    if (lane == 31) s_wsum[warp] = incl;
+    __syncthreads();
+    int base = incl - run, total = 0;
+    for (int w = 0; w < T / 32; ++w) {
+      if (w < warp) base += s_wsum[w];
+      total += s_wsum[w];
+    }
+#pragma unroll
+    for (int r = 0; r < E; ++r) {
+      s_cnt[i * E + r] = base;
+      base += cnt[r];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int m = 0; m < E; ++m) {
+      if (f[m] >= 0) {
+        s_sorted[s_cnt[f[m] * nch + warp + m * (T / 32)] + rank[m]] =
+            s_val[i + m * T];
+      }
+    }
+    __syncthreads();
+    // each bucket summed in pixel order by one thread (the buckets past
+    // n_few are empty, so the next bucket's offset ends this one)
+    if (i < n_few) {
+      const int begin = s_cnt[i * nch];
+      const int end = i + 1 < kFew ? s_cnt[(i + 1) * nch] : total;
+      float acc = 0.f;
+#pragma unroll 8
+      for (int r = begin; r < end; ++r) acc += s_sorted[r];
+      u_inst[start + s_few[i]] = acc;
+      npix_inst[start + s_few[i]] = end - begin;
+    }
+    done = prev;
+    int more = 0;
+#pragma unroll
+    for (int m = 0; m < E; ++m) more |= loc[m] > done;
+    if (__syncthreads_or(more) == 0) return;
+  }
+}
+
 __global__ void segment_sum_kernel(const float* __restrict__ vals,
                                    const int* __restrict__ ivals,
                                    const int* __restrict__ bounds,
@@ -213,6 +403,30 @@ extern "C" int render_fwd(const float* feat, const int* tile_start,
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// u_inst, npix_inst (zero-filled by the caller) from the forward's
+// per-pixel midx and ucross, [n_tiles, *] with tile strides midx_stride
+// and ucross_stride and pixel stride 1 (views of out_i and out_f, read in
+// place).
+extern "C" int tile_scatter_sum(const int* midx, long long midx_stride,
+                                const float* ucross, long long ucross_stride,
+                                const int* tile_start, const int* tile_stop,
+                                int n_tiles, int q, float* u_inst,
+                                int* npix_inst, void* stream) {
+  if (n_tiles <= 0) return 0;
+  if (q <= 0 || q > 4 * kThreads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // four pixels a thread, at least a warp: 256 threads for a 32x32 tile,
+  // so that a frame's tiles are resident together
+  int n = 128;
+  while (n < q) n <<= 1;
+  tile_scatter_sum_kernel<<<n_tiles, n / E, n * 3 * sizeof(float),
+                            static_cast<cudaStream_t>(stream)>>>(
+      midx, midx_stride, ucross, ucross_stride, tile_start, tile_stop, q,
+      u_inst, npix_inst);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -49,10 +49,11 @@
 // - Exact culling.  A pair with alpha < alpha_min changes no output, so
 //   skipping it keeps every output bit-equal as long as no contributing
 //   pair is skipped.  After a round lands, each instance's box is computed
-//   once (cull_box: outside it opacity * exp(power) < alpha_min, with a
-//   margin for float32 rounding; empty when opacity < alpha_min), and each
-//   warp takes the round 32 instances at a time: one ballot of "the box
-//   meets my patch's bounding box", then only the set bits, in order.
+//   once (blend_common.cuh's cull_box: outside it opacity * exp(power) <
+//   alpha_min, with a margin for float32 rounding; empty when opacity <
+//   alpha_min), and each warp takes the round 32 instances at a time: one
+//   ballot of "the box meets my patch's bounding box", then only the set
+//   bits, in order.
 // - Fused multiply-adds in the tangent arithmetic only (__fmaf_rn stays an
 //   FFMA under --fmad=false), on negated terms so that each tangent costs
 //   one FFMA a sum, and one reciprocal for rate; the primal's expressions
@@ -76,7 +77,6 @@
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
-#include <math_constants.h>
 
 #include <climits>
 
@@ -95,11 +95,6 @@ constexpr int kMaxK = 6;     // tangents a launch carries
 // registers, took 9-13% longer on an H100)
 constexpr int kMinBlocks = 3;
 constexpr unsigned kFull = 0xffffffffu;
-// Relative slack of cull_box against float32 rounding, and its absolute
-// widening in pixels (render.py's cull_extent mirrors both).
-constexpr float kCullRel = 2e-5f;
-constexpr float kCullAbs = 1e-2f;
-
 // Where a launch's tangent group sits in the whole table and output.
 struct Group {
   int tan_stride;    // floats per row of the whole tangent table
@@ -119,36 +114,6 @@ __device__ __forceinline__ int tile_pixel(const Params& prm) {
     return ly < prm.tile_h ? ly * prm.tile_w + lx : prm.tile_w * prm.tile_h;
   }
   return threadIdx.x + blockIdx.y * kThreads;
-}
-
-// The box (x0, x1, y0, y1) outside which the splat's alpha is below
-// alpha_min at every pixel.  alpha >= alpha_min needs
-// power >= -tau, tau = ln(opacity / alpha_min), i.e. the quadratic form
-// A dx^2 + 2 B dx dy + C dy^2 <= 2 tau, whose ellipse has the half-extents
-// sqrt(2 tau C / det) and sqrt(2 tau A / det), det = A C - B^2.  The
-// kernel's float32 power, expf and product each round; the box is taken
-// for the form with A, C shrunk and |B| grown by kCullRel and tau grown by
-// kCullRel, far more than that rounding, then widened by kCullRel and
-// kCullAbs pixels.  Empty when opacity < alpha_min (then opacity * G <
-// alpha_min for every G <= 1); unbounded when the conic is not positive
-// definite.  Every comparison is written so that a NaN leaves the box
-// unbounded, as the per-pair test would not skip such a pair either.
-__device__ __forceinline__ float4 cull_box(const float* f, float alpha_min) {
-  const float x = f[0], y = f[1], op = f[5];
-  const float inf = CUDART_INF_F;
-  if (op < alpha_min) return make_float4(inf, -inf, inf, -inf);
-  const float tau2 =
-      2.f * logf(op / alpha_min) * (1.f + kCullRel) + kCullRel;
-  const float a = f[2] * (1.f - kCullRel);
-  const float c = f[4] * (1.f - kCullRel);
-  const float b = fabsf(f[3]) * (1.f + kCullRel);
-  const float det = a * c - b * b;
-  if (!(a > 0.f && c > 0.f && det > 0.f)) {
-    return make_float4(-inf, inf, -inf, inf);
-  }
-  const float rx = sqrtf(tau2 * c / det) * (1.f + kCullRel) + kCullAbs;
-  const float ry = sqrtf(tau2 * a / det) * (1.f + kCullRel) + kCullAbs;
-  return make_float4(x - rx, x + rx, y - ry, y + ry);
 }
 
 // Shared-memory layout of a staged instance: the 11 features padded to
@@ -261,8 +226,8 @@ render_jvp_kernel(const float* __restrict__ feat,
     const float4* s_tan =
         reinterpret_cast<const float4*>(s_feat + kBatch * kFeatPad);
     if (threadIdx.x < n) {
-      s_box[threadIdx.x] = cull_box(s_feat + threadIdx.x * kFeatPad,
-                                    prm.alpha_min);
+      s_box[threadIdx.x] = blend::cull_box(s_feat + threadIdx.x * kFeatPad,
+                                           prm.alpha_min);
     }
     __syncthreads();
 
@@ -271,7 +236,7 @@ render_jvp_kernel(const float* __restrict__ feat,
       bool meets = false;
       if (j0 + lane < n) {
         const float4 b = s_box[j0 + lane];
-        meets = !(b.x > wx1 || b.y < wx0 || b.z > wy1 || b.w < wy0);
+        meets = blend::box_meets(b, wx0, wx1, wy0, wy1);
       }
       unsigned todo = __ballot_sync(kFull, meets);
       while (todo) {
@@ -426,7 +391,7 @@ cudaError_t launch_counted(const Launch& a) {
 __global__ void cull_boxes_kernel(const float* __restrict__ feat, int n,
                                   float alpha_min, float4* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = cull_box(feat + (size_t)i * kFeat, alpha_min);
+  if (i < n) out[i] = blend::cull_box(feat + (size_t)i * kFeat, alpha_min);
 }
 
 template <int PER_K>

@@ -29,9 +29,14 @@ table is rendered in groups of columns, one launch each, the primal
 written by the first.
 
 The per-instance median-crossing statistics ``u_inst``/``npix_inst`` are a
-scatter of per-pixel ``(midx, ucross)``.  On the card that reduction is a
-stable sort by key followed by the ``segment_sum`` kernel, so it is
-bit-reproducible from run to run (a float scatter with atomics is not).
+scatter of per-pixel ``(midx, ucross)``.  A pixel's ``midx`` lies in its
+own tile's segment, so each tile reduces on its own: on the card the
+``tile_scatter_sum`` kernel (``csrc/render_fwd.cu``: per tile, counting
+sorts in shared memory over passes of up to 32 instances, each instance
+summed in pixel order), bit-equal to ``index_add_`` on the CPU and
+bit-reproducible from run to run (a float scatter with atomics is not).  ``scatter_sum`` (a stable
+sort by key and the ``segment_sum`` kernel) is left for keys that are not
+tile-local, the dense oracle's.
 
 Input layout: ``table`` is the sorted feature table ``[I, 11]`` with
 columns x, y, A, B, C, opacity, r, g, b, depth, depth_sgview; ``tile_start``
@@ -60,13 +65,14 @@ ROW = len(ROW_COLUMNS)
 TILE_BATCH = 64  # tiles the plain versions blend at once
 
 JVP_GROUP = 6  # tangents one render_jvp launch carries (the twist basis)
-# render_jvp.cu's cull_box: relative slack against float32 rounding, and
+BWD_THREADS = 256  # threads of a render_bwd block
+# blend_common.cuh's cull_box: relative slack against float32 rounding, and
 # the absolute widening in pixels
 CULL_REL = 2e-5
 CULL_ABS = 1e-2
 
-launches = {"render_fwd": 0, "segment_sum": 0, "render_bwd": 0,
-            "segment_sum_rows": 0, "render_jvp": 0}
+launches = {"render_fwd": 0, "tile_scatter_sum": 0, "segment_sum": 0,
+            "render_bwd": 0, "segment_sum_rows": 0, "render_jvp": 0}
 # segment_sum_rows launches by row width F (2: the uncertainty sums, 12:
 # the gradient rows), counted beside launches["segment_sum_rows"]
 row_launches: dict = {}
@@ -196,18 +202,77 @@ def scatter_sum(keys, vals, ivals, n: int):
                        bounds)
 
 
+def tile_scatter_sum_reference(midx, ucross, tile_start, tile_stop,
+                               n_inst: int):
+    """Plain version of the ``tile_scatter_sum`` kernel: from per-pixel
+    ``midx`` (int32) and ``ucross`` [T, Q] of the render core,
+    ``u_inst[i]`` = the sum of ``ucross`` over the pixels whose ``midx`` is
+    ``i`` and ``npix_inst[i]`` their count, [n_inst] each.  A ``midx``
+    outside its pixel's tile segment ``[tile_start[t], tile_stop[t])``
+    (-1: no median crossing) names no instance.  ``index_add_`` in pixel
+    order: on the CPU the kernel's order too."""
+    start = tile_start.to(torch.int64)[:, None]
+    stop = tile_stop.to(torch.int64)[:, None]
+    m = midx.to(torch.int64)
+    keys = torch.where((m >= start) & (m < stop), m, torch.full_like(m, -1))
+    return scatter_sum_reference(keys.reshape(-1), ucross.reshape(-1),
+                                 torch.ones_like(midx).reshape(-1), n_inst)
+
+
+def tile_scatter_sum(midx, ucross, tile_start, tile_stop, n_inst: int):
+    """:func:`tile_scatter_sum_reference` as the ``tile_scatter_sum``
+    kernel on CUDA tensors (one block per tile; ``midx`` and ``ucross`` may
+    be strided views [T, Q] with unit pixel stride, such as the forward's
+    ``out_i[:, 2]`` and ``out_f[:, 8]``, and are read in place); the plain
+    version on CPU tensors."""
+    if midx.device.type == "cpu":
+        return tile_scatter_sum_reference(midx, ucross, tile_start,
+                                          tile_stop, n_inst)
+    _check_cuda(tile_start, torch.int32, "tile_start")
+    _check_cuda(tile_stop, torch.int32, "tile_stop")
+    n_tiles = tile_start.shape[0]
+    for x, dtype, name in ((midx, torch.int32, "midx"),
+                           (ucross, torch.float32, "ucross")):
+        if x.device != tile_start.device or x.dtype != dtype:
+            raise ValueError(f"{name} must be a {dtype} tensor on "
+                             f"{tile_start.device}")
+        if x.dim() != 2 or x.shape[0] != n_tiles or x.stride(1) != 1:
+            raise ValueError(f"{name} must be [T, Q] with unit pixel stride")
+    q = midx.shape[1]
+    if ucross.shape != midx.shape or tile_stop.shape != (n_tiles,):
+        raise ValueError("midx and ucross must be [T, Q] and tile_stop [T]")
+    if q > MAX_TILE_PX:
+        raise ValueError(f"the CUDA kernel takes tiles of at most "
+                         f"{MAX_TILE_PX} pixels, got {q}")
+    from ._build import load
+    u_inst = torch.zeros(n_inst, dtype=torch.float32, device=midx.device)
+    npix_inst = torch.zeros(n_inst, dtype=torch.int32, device=midx.device)
+    with torch.cuda.device(midx.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = load("render_fwd").tile_scatter_sum(
+            midx.data_ptr(), midx.stride(0), ucross.data_ptr(),
+            ucross.stride(0), tile_start.data_ptr(), tile_stop.data_ptr(),
+            n_tiles, q, u_inst.data_ptr(), npix_inst.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"tile_scatter_sum launch failed: CUDA error {rc}")
+    launches["tile_scatter_sum"] += 1
+    return u_inst, npix_inst
+
+
 # --------------------------------------------------------------------------
 # the render core
 # --------------------------------------------------------------------------
 
 
-def core_fwd_reference(table, tile_start, tile_stop, gt_tiles, *,
-                       cfg: RasterConfig, tiles_x: int, height: int,
-                       width: int) -> CoreOutputs:
-    """Plain PyTorch render core: tiles in batches of ``TILE_BATCH``, each
-    batch's segments padded and blended ``cfg.chunk`` instances at a time
-    with :func:`blend.blend_chunk_fwd`; a batch stops once every in-image
-    pixel has terminated."""
+def core_fwd_pixels_reference(table, tile_start, tile_stop, gt_tiles, *,
+                              cfg: RasterConfig, tiles_x: int, height: int,
+                              width: int):
+    """The per-pixel half of :func:`core_fwd_reference`: its first nine
+    outputs (color through midx) and the per-pixel ``ucross`` [T, Q], the
+    median crossing's depth moment that ``u_inst`` sums.  Tiles in batches
+    of ``TILE_BATCH``, each batch's segments padded and blended
+    ``cfg.chunk`` instances at a time with :func:`blend.blend_chunk_fwd`; a
+    batch stops once every in-image pixel has terminated."""
     dev = table.device
     n_inst = table.shape[0]
     t_all = tile_start.shape[0]
@@ -239,11 +304,20 @@ def core_fwd_reference(table, tile_start, tile_stop, gt_tiles, *,
                      carry.n_contrib, carry.n_valid, carry.midx,
                      blend.finish_ucross(carry, gt)))
     cat = [torch.cat(x, 0) for x in zip(*outs)]
-    midx, ucross = cat[8], cat[9]
-    u_inst, npix_inst = scatter_sum_reference(
-        midx.reshape(-1), ucross.reshape(-1),
-        torch.ones_like(midx).reshape(-1), n_inst)
-    return CoreOutputs(*cat[:9], u_inst, npix_inst)
+    return tuple(cat[:9]), cat[9]
+
+
+def core_fwd_reference(table, tile_start, tile_stop, gt_tiles, *,
+                       cfg: RasterConfig, tiles_x: int, height: int,
+                       width: int) -> CoreOutputs:
+    """Plain PyTorch render core: :func:`core_fwd_pixels_reference`, then
+    :func:`tile_scatter_sum_reference` of its ``(midx, ucross)``."""
+    pixels, ucross = core_fwd_pixels_reference(
+        table, tile_start, tile_stop, gt_tiles, cfg=cfg, tiles_x=tiles_x,
+        height=height, width=width)
+    u_inst, npix_inst = tile_scatter_sum_reference(
+        pixels[8], ucross, tile_start, tile_stop, table.shape[0])
+    return CoreOutputs(*pixels, u_inst, npix_inst)
 
 
 def core_bwd_reference(table, tile_start, tile_stop, pix, *,
@@ -349,30 +423,82 @@ def core_fwd(table, tile_start, tile_stop, gt_tiles, *, cfg: RasterConfig,
     launch_render_fwd(table, tile_start, tile_stop, gt_tiles, out_f, out_i,
                       cfg=cfg, tiles_x=tiles_x, height=height, width=width)
     midx = out_i[:, 2]
-    u_inst, npix_inst = scatter_sum(
-        midx.reshape(-1), out_f[:, 8].reshape(-1),
-        torch.ones((n_tiles * q,), dtype=torch.int32, device=dev),
-        table.shape[0])
+    u_inst, npix_inst = tile_scatter_sum(midx, out_f[:, 8], tile_start,
+                                         tile_stop, table.shape[0])
     return CoreOutputs(out_f[:, 0:3], out_f[:, 3], out_f[:, 4], out_f[:, 5],
                        out_f[:, 6], out_f[:, 7], out_i[:, 0], out_i[:, 1],
                        midx, u_inst, npix_inst)
 
 
+def bwd_pixel_map(tile_h: int, tile_w: int, device="cpu"):
+    """The tile pixel of each ``render_bwd`` thread, [BWD_THREADS, PPT]
+    int64 (``tile_h * tile_w`` where it has none): PPT = 1, 2 or 4 pixels a
+    thread by the tile's size; lane l of warp w owns pixel (l % 8, l // 8)
+    of each of its PPT 8x4 patches (a 2x2 block of patches with four pixels
+    a thread and an even number of patches across and down, else the PPT
+    consecutive patches w * PPT + k), or, where the tile does not divide
+    into 8x4 patches, the forward's map, pixel ``thread + k * 256``.  On the
+    CPU this mirror of ``render_bwd.cu``'s ``bwd_tile_pixel``; on a CUDA
+    device that function's own map (one launch of a kernel that runs only
+    it).  The checks hold each pixel of the tile owned exactly once."""
+    q = tile_h * tile_w
+    if q > MAX_TILE_PX:
+        raise ValueError(f"render_bwd takes tiles of at most {MAX_TILE_PX} "
+                         f"pixels, got {q}")
+    ppt = 1 if q <= BWD_THREADS else 2 if q <= 2 * BWD_THREADS else 4
+    if torch.device(device).type == "cuda":
+        from ._build import load
+        out = torch.empty((BWD_THREADS, ppt), dtype=torch.int32,
+                          device=device)
+        with torch.cuda.device(out.device):
+            rc = load("render_bwd").render_bwd_pixel_map(
+                tile_w, tile_h, out.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"render_bwd_pixel_map launch failed: CUDA "
+                               f"error {rc}")
+        return out.to(torch.int64)
+    thread = torch.arange(BWD_THREADS)[:, None]
+    k = torch.arange(ppt)[None, :]
+    if tile_w % 8 or tile_h % 4:
+        qi = thread + k * BWD_THREADS
+        return torch.where(qi < q, qi, torch.full_like(qi, q))
+    warp, lane = thread // 32, thread % 32
+    across, down = tile_w // 8, tile_h // 4
+    if ppt == 4 and across % 2 == 0 and down % 2 == 0:
+        half = across // 2
+        pxp = 2 * (warp % half) + (k & 1)
+        pyp = 2 * (warp // half) + (k >> 1)
+    else:
+        patch = warp * ppt + k
+        pxp, pyp = patch % across, patch // across
+    qi = (pyp * 4 + lane // 8) * tile_w + pxp * 8 + lane % 8
+    return torch.where(pyp < down, qi, torch.full_like(qi, q))
+
+
 def launch_render_bwd(table, tile_start, tile_stop, pix, rows, *,
                       cfg: RasterConfig, tiles_x: int, height: int,
                       width: int, want_med: bool = True,
-                      want_var: bool = True):
+                      want_var: bool = True, n_contrib, pairs=None):
     """One launch of the ``render_bwd`` kernel into ``rows`` [I, 12], which
-    the caller zero-fills (inputs checked by :func:`core_bwd`)."""
+    the caller zero-fills (inputs checked by :func:`core_bwd`).
+    ``n_contrib`` [T, Q] int32 (unit pixel stride; the forward's
+    ``out_i[:, 0]`` is read in place) stops each pixel after its last
+    contributor.  ``pairs``, a CUDA int64 [1] tensor, if given, gets the
+    (instance, pixel) pairs the kernel tested added to it."""
     from ._build import load
+    if rows.data_ptr() % 16:
+        raise ValueError("rows must be 16-byte aligned")
+    pairs_ptr = None if pairs is None else pairs.data_ptr()
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = load("render_bwd").render_bwd(
             table.data_ptr(), tile_start.data_ptr(), tile_stop.data_ptr(),
-            pix.data_ptr(), rows.data_ptr(), tile_start.shape[0], tiles_x,
-            cfg.tile_w, cfg.tile_h, width, height, cfg.alpha_cap,
-            cfg.alpha_min, cfg.t_terminate, int(want_med), int(want_var),
-            stream)
+            pix.data_ptr(), n_contrib.data_ptr(), n_contrib.stride(0),
+            rows.data_ptr(),
+            tile_start.shape[0], tiles_x, cfg.tile_w, cfg.tile_h, width,
+            height, cfg.alpha_cap, cfg.alpha_min, cfg.t_terminate,
+            int(want_med), int(want_var), pairs_ptr, stream)
     if rc != 0:
         raise RuntimeError(f"render_bwd launch failed: CUDA error {rc}")
     launches["render_bwd"] += 1
@@ -380,13 +506,16 @@ def launch_render_bwd(table, tile_start, tile_stop, pix, rows, *,
 
 def core_bwd(table, tile_start, tile_stop, gt_tiles, totals, cots, *,
              cfg: RasterConfig, tiles_x: int, height: int, width: int,
-             want_med: bool = True, want_var: bool = True):
+             want_med: bool = True, want_var: bool = True, n_contrib):
     """The backward core: gradient rows [I, 12] at sorted positions.
 
     ``totals`` are the forward's (color [T, 3, Q], depth, weight, var,
     t_final), ``cots`` the cotangents of (color, depth, weight, var,
-    median, t_final), all tile-major.  The ``render_bwd`` kernel on CUDA
-    tensors, :func:`core_bwd_reference` on CPU tensors."""
+    median, t_final), all tile-major; ``n_contrib``, the forward's [T, Q],
+    lets the kernel stop each pixel after its last contributor, which
+    changes no row.  The ``render_bwd`` kernel on CUDA tensors,
+    :func:`core_bwd_reference` (which needs no ``n_contrib``) on CPU
+    tensors."""
     pix = blend.bwd_pixel_inputs(gt_tiles, *totals, *cots).contiguous()
     kw = dict(cfg=cfg, tiles_x=tiles_x, height=height, width=width,
               want_med=want_med, want_var=want_var)
@@ -410,9 +539,14 @@ def core_bwd(table, tile_start, tile_stop, gt_tiles, totals, cots, *,
     if not (table.device == tile_start.device == tile_stop.device
             == pix.device):
         raise ValueError("all inputs must be on one device")
+    if (n_contrib.device != table.device or n_contrib.dtype != torch.int32
+            or n_contrib.shape != (n_tiles, q) or n_contrib.stride(1) != 1):
+        raise ValueError(f"n_contrib must be [T, {q}] int32 on "
+                         f"{table.device} with unit pixel stride")
     rows = torch.zeros((table.shape[0], ROW), dtype=torch.float32,
                        device=table.device)
-    launch_render_bwd(table, tile_start, tile_stop, pix, rows, **kw)
+    launch_render_bwd(table, tile_start, tile_stop, pix, rows,
+                      n_contrib=n_contrib, **kw)
     return rows
 
 
@@ -478,21 +612,21 @@ def core_fwd_jvp_reference(table, tans, tile_start, tile_stop, gt_tiles, *,
                      carry.color, carry.depth, carry.weight, carry.median,
                      blend.finish_t_final_tangent(carry)))
     cat = [torch.cat(x, 0) for x in zip(*outs)]
-    midx, ucross = cat[8], cat[9]
-    u_inst, npix_inst = scatter_sum_reference(
-        midx.reshape(-1), ucross.reshape(-1),
-        torch.ones_like(midx).reshape(-1), n_inst)
+    u_inst, npix_inst = tile_scatter_sum_reference(cat[8], cat[9],
+                                                   tile_start, tile_stop,
+                                                   n_inst)
     return (CoreOutputs(*cat[:9], u_inst, npix_inst),
             PoseTangents(*cat[10:]))
 
 
 def cull_extent(conic, opacity, alpha_min: float):
-    """The half-extents (rx, ry) [N] of ``render_jvp.cu``'s ``cull_box``, in
-    its float32 expressions: outside ``|dx| <= rx, |dy| <= ry`` a splat's
-    alpha is below ``alpha_min`` at every pixel.  ``-inf`` (an empty box)
-    where the opacity is below ``alpha_min``, ``inf`` where the conic is
-    not positive definite.  The kernel skips the pairs outside the box;
-    the tests hold this mirror to the blend's own alpha."""
+    """The half-extents (rx, ry) [N] of ``blend_common.cuh``'s
+    ``cull_box``, in its float32 expressions: outside ``|dx| <= rx,
+    |dy| <= ry`` a splat's alpha is below ``alpha_min`` at every pixel.
+    ``-inf`` (an empty box) where the opacity is below ``alpha_min``,
+    ``inf`` where the conic is not positive definite.  ``render_jvp`` and
+    ``render_bwd`` skip the pairs outside the box; the tests hold this
+    mirror to the blend's own alpha."""
     f32 = lambda v: torch.tensor(v, dtype=torch.float32)
     one = f32(1.0)
     up, down, rel = one + f32(CULL_REL), one - f32(CULL_REL), f32(CULL_REL)
@@ -513,8 +647,8 @@ def cull_extent(conic, opacity, alpha_min: float):
 
 def cull_boxes(table, alpha_min: float):
     """The culling box (x0, x1, y0, y1) [I, 4] of each row of a feature
-    table [I, 11]: on a CUDA tensor the ``render_jvp`` kernel's own
-    ``cull_box`` (one launch of a kernel that runs only that function), on
+    table [I, 11]: on a CUDA tensor the kernels' own ``cull_box`` (one
+    launch of a ``render_jvp.cu`` kernel that runs only that function), on
     a CPU tensor :func:`cull_extent` around the splat's center.  The checks
     hold the first to the second and to the blend's alpha."""
     if table.device.type == "cpu":
@@ -595,10 +729,8 @@ def core_fwd_jvp(table, tans, tile_start, tile_stop, gt_tiles, *,
     launch_render_jvp(table, tans, tile_start, tile_stop, gt_tiles, out_f,
                       out_i, out_t, **kw)
     midx = out_i[:, 2]
-    u_inst, npix_inst = scatter_sum(
-        midx.reshape(-1), out_f[:, 8].reshape(-1),
-        torch.ones((n_tiles * q,), dtype=torch.int32, device=dev),
-        table.shape[0])
+    u_inst, npix_inst = tile_scatter_sum(midx, out_f[:, 8], tile_start,
+                                         tile_stop, table.shape[0])
     primal = CoreOutputs(out_f[:, 0:3], out_f[:, 3], out_f[:, 4],
                          out_f[:, 5], out_f[:, 6], out_f[:, 7], out_i[:, 0],
                          out_i[:, 1], midx, u_inst, npix_inst)

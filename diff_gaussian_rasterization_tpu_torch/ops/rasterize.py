@@ -68,10 +68,12 @@ class _RenderCore(torch.autograd.Function):
         ctx.mark_non_differentiable(out.n_contrib, out.n_valid, out.midx,
                                     out.npix_inst)
         ctx.set_materialize_grads(False)
-        # out.var is the true variance, before any ref_depth_var zeroing
+        # out.var is the true variance, before any ref_depth_var zeroing;
+        # n_contrib stops the backward's pixels at their last contributor
         ctx.save_for_backward(table, tile_start, tile_stop, gt_tiles,
                               out.color, out.depth, out.weight, out.var,
-                              out.t_final, inv, gauss_start, gauss_stop)
+                              out.t_final, out.n_contrib, inv, gauss_start,
+                              gauss_stop)
         ctx.geometry = (cfg, tiles_x, height, width)
         return tuple(out)
 
@@ -79,7 +81,7 @@ class _RenderCore(torch.autograd.Function):
     def backward(ctx, d_color, d_depth, d_weight, d_median, d_var, d_tfinal,
                  *_unused):
         (table, tile_start, tile_stop, gt_tiles, color, depth, weight, var,
-         t_final, inv, gauss_start, gauss_stop) = ctx.saved_tensors
+         t_final, n_contrib, inv, gauss_start, gauss_stop) = ctx.saved_tensors
         cfg, tiles_x, height, width = ctx.geometry
         cots = (d_color, d_depth, d_weight, d_var, d_median, d_tfinal)
         nones = (None,) * 11
@@ -94,7 +96,8 @@ class _RenderCore(torch.autograd.Function):
              zero(d_weight, weight), zero(d_var, var),
              zero(d_median, depth), zero(d_tfinal, t_final)),
             cfg=cfg, tiles_x=tiles_x, height=height, width=width,
-            want_med=d_median is not None, want_var=d_var is not None)
+            want_med=d_median is not None, want_var=d_var is not None,
+            n_contrib=n_contrib)
         g = segment_sum_rows(rows, inv, gauss_start, gauss_stop)  # [P, 12]
         # the median and variance rows both belong to depth_sgview
         d_feat = torch.cat([g[:, :10], (g[:, 10] + g[:, 11])[:, None]], 1)

@@ -108,6 +108,87 @@ def test_segment_sum_matches_plain(dev):
     assert torch.equal(a[0].cpu(), b[0]) and torch.equal(a[1].cpu(), b[1])
 
 
+def scatter_inputs(tile, seed, device):
+    """Per-pixel (midx, ucross) as strided views of [T, 3, Q] and [T, 9, Q]
+    buffers (as the forward's out_i[:, 2] and out_f[:, 8]), on tiles whose
+    segments run from empty to longer than the tile's pixels, with pixels
+    that name no instance, long runs of one instance, and a budget tail."""
+    g = torch.Generator().manual_seed(seed)
+    n_tiles, q = 40, tile[0] * tile[1]
+    lengths = torch.randint(0, 60, (n_tiles,), generator=g)
+    lengths[::7] = 0
+    lengths[3::9] = 3000  # segments longer than a tile's pixels
+    stop = torch.cumsum(lengths, 0).to(torch.int32)
+    start = (stop - lengths).to(torch.int32)
+    n_inst = int(stop[-1]) + 500
+    out_i = torch.randint(-5, 5, (n_tiles, 3, q), generator=g,
+                          dtype=torch.int32)
+    out_f = torch.randn(n_tiles, 9, q, generator=g)
+    for t in range(n_tiles):
+        ln = int(lengths[t])
+        if ln == 0:
+            out_i[t, 2] = -1
+            continue
+        # a few instances named by many pixels, the rest by a few
+        hot = torch.randint(0, min(ln, 4), (q,), generator=g)
+        cold = torch.randint(0, ln, (q,), generator=g)
+        pick = torch.rand(q, generator=g)
+        local = torch.where(pick < 0.5, hot, cold)
+        out_i[t, 2] = torch.where(pick < 0.9, int(start[t]) + local,
+                                  torch.full_like(local, -1)).to(torch.int32)
+    return (out_i.to(device), out_f.to(device), start.to(device),
+            stop.to(device), n_inst)
+
+
+@pytest.mark.parametrize("tile", [(16, 16), (32, 32), (8, 16)])
+def test_tile_scatter_sum_matches_plain(dev, tile):
+    """Bit-equal to its plain version on the CPU (index_add_ in pixel
+    order), reading midx and ucross in place from strided views; every
+    instance no pixel names, the gaps and the tail included, reads 0.
+    Tiles whose pixels name at most 32 distinct instances take one pass
+    of the kernel's counting sort, the others several."""
+    out_i, out_f, start, stop, n_inst = scatter_inputs(tile, 3, dev)
+    distinct = [len(set(r.tolist()) - {-1}) for r in out_i[:, 2].cpu()]
+    assert min(distinct) <= 32 < max(distinct)
+    before = render.launches["tile_scatter_sum"]
+    u, npix = render.tile_scatter_sum(out_i[:, 2], out_f[:, 8], start, stop,
+                                      n_inst)
+    torch.cuda.synchronize()
+    assert render.launches["tile_scatter_sum"] == before + 1
+    want = render.tile_scatter_sum_reference(
+        out_i[:, 2].cpu(), out_f[:, 8].cpu(), start.cpu(), stop.cpu(),
+        n_inst)
+    assert torch.equal(u.cpu(), want[0]) and torch.equal(npix.cpu(), want[1])
+    assert int(want[1].max()) > 100 and int(want[1].sum()) > 0
+    again = render.tile_scatter_sum(out_i[:, 2], out_f[:, 8], start, stop,
+                                    n_inst)
+    assert torch.equal(u, again[0]) and torch.equal(npix, again[1])
+
+
+@pytest.mark.parametrize("tile", [(16, 16), (32, 32)])
+def test_tile_scatter_sum_on_the_forward(dev, tile):
+    """On the forward kernel's own midx and ucross, over a scene whose
+    32x32 tiles hold segments longer than their 1024 pixels: bit-equal to
+    the plain version on the CPU, and core_fwd's u_inst / npix_inst are
+    the kernel's."""
+    args, ckw = core_inputs(tile, p=12000, device=dev)
+    table, start, stop, gt = args
+    n_tiles, q = gt.shape
+    out_f = torch.empty((n_tiles, 9, q), device=dev)
+    out_i = torch.empty((n_tiles, 3, q), dtype=torch.int32, device=dev)
+    render.launch_render_fwd(table, start, stop, gt, out_f, out_i, **ckw)
+    u, npix = render.tile_scatter_sum(out_i[:, 2], out_f[:, 8], start, stop,
+                                      table.shape[0])
+    want = render.tile_scatter_sum_reference(
+        out_i[:, 2].cpu(), out_f[:, 8].cpu(), start.cpu(), stop.cpu(),
+        table.shape[0])
+    assert torch.equal(u.cpu(), want[0]) and torch.equal(npix.cpu(), want[1])
+    if tile == (32, 32):
+        assert int((stop - start).max()) > q
+    out = render.core_fwd(*args, **ckw)
+    assert torch.equal(out.u_inst, u) and torch.equal(out.npix_inst, npix)
+
+
 def test_rasterize_card_matches_cpu(dev):
     means, kw = bench_scene(seed=2, p=3000, height=96, width=160,
                             device="cpu")
@@ -130,10 +211,10 @@ def test_rasterize_card_matches_cpu(dev):
         assert torch.equal(getattr(b, f), getattr(c, f)), f
 
 
-def bwd_inputs(tile, device, seed=0):
+def bwd_inputs(tile, device, seed=0, p=3000):
     """The forward on ``device`` (the kernel on the card) and random
     cotangents from a seeded generator."""
-    args, ckw = core_inputs(tile, device=device)
+    args, ckw = core_inputs(tile, p=p, device=device)
     fwd = render.core_fwd(*args, **ckw)
     t, q = fwd.depth.shape
     g = torch.Generator().manual_seed(seed)
@@ -143,16 +224,27 @@ def bwd_inputs(tile, device, seed=0):
     return args, ckw, fwd, totals, cots
 
 
+# scenes of the backward's card tests: 3,000 Gaussians on 96x160, where
+# almost no pixel terminates, and 12,000, where ~10% do and segments run
+# past 1,024 instances; in both most pixels' last contributor comes before
+# their segment's end, so the n_contrib stop and the culling both act
+BWD_SCENES = {"sparse": 3000, "dense": 12000}
+
+
+@pytest.mark.parametrize("scene", list(BWD_SCENES))
 @pytest.mark.parametrize("tile", [(8, 16), (16, 16), (32, 32)])
 @pytest.mark.parametrize("want", [(True, True), (False, False)])
-def test_render_bwd_matches_plain(dev, tile, want):
-    args, ckw, fwd, totals, cots = bwd_inputs(tile, dev)
+def test_render_bwd_matches_plain(dev, tile, want, scene):
+    args, ckw, fwd, totals, cots = bwd_inputs(tile, dev, p=BWD_SCENES[scene])
     table, start, stop, gt = args
     kw = dict(ckw, want_med=want[0], want_var=want[1])
     before = render.launches["render_bwd"]
-    k = render.core_bwd(table, start, stop, gt, totals, cots, **kw)
+    k = render.core_bwd(table, start, stop, gt, totals, cots, **kw,
+                        n_contrib=fwd.n_contrib)
     torch.cuda.synchronize()
     assert render.launches["render_bwd"] == before + 1
+    seg = (stop - start)[:, None]
+    assert float((fwd.n_contrib < seg).float().mean()) > 0.5
     pix = render.blend.bwd_pixel_inputs(gt, *totals, *cots).contiguous()
     p = render.core_bwd_reference(table, start, stop, pix, **kw)
     plain_fwd = render.core_fwd_reference(*args, **ckw)
@@ -166,8 +258,56 @@ def test_render_bwd_matches_plain(dev, tile, want):
     assert float((~tile_ok).float().mean()) < 0.05
     if not want[0]:
         assert float(k[:, 11].abs().max()) == 0.0
-    again = render.core_bwd(table, start, stop, gt, totals, cots, **kw)
+    again = render.core_bwd(table, start, stop, gt, totals, cots, **kw,
+                            n_contrib=fwd.n_contrib)
     assert torch.equal(k, again)
+
+
+@pytest.mark.parametrize("tile", [(16, 16), (32, 32), (8, 8), (12, 20)])
+def test_render_bwd_stop_and_culling_change_no_row(dev, tile):
+    """Stopping each pixel at its last contributor (the forward's
+    n_contrib) and culling by box give the rows of a walk of the whole
+    segment (an n_contrib of INT_MAX, which the kernel clips to the
+    segment), bit for bit; the counter build changes no row and tests
+    fewer pairs than the pixels walk, and fewer still with the stop."""
+    args, ckw, fwd, totals, cots = bwd_inputs(tile, dev, p=12000)
+    table, start, stop, gt = args
+    pix = render.blend.bwd_pixel_inputs(gt, *totals, *cots).contiguous()
+    outs, tested = [], []
+    whole = torch.full_like(fwd.n_contrib, torch.iinfo(torch.int32).max)
+    for ncon in (fwd.n_contrib, whole):
+        for count in (False, True):
+            rows = torch.zeros((table.shape[0], render.ROW), device=dev)
+            pairs = torch.zeros(1, dtype=torch.int64, device=dev) \
+                if count else None
+            render.launch_render_bwd(table, start, stop, pix, rows, **ckw,
+                                     n_contrib=ncon, pairs=pairs)
+            outs.append(rows)
+            if count:
+                tested.append(int(pairs))
+    torch.cuda.synchronize()
+    for rows in outs[1:]:
+        assert torch.equal(rows, outs[0])
+    n_tiles, q = gt.shape
+    px_mask = render.pixel_coords(n_tiles, ckw["tiles_x"], tile[0], tile[1],
+                                  ckw["height"], ckw["width"], dev)[2]
+    seg = (stop - start).to(torch.int64)[:, None]
+    walked = torch.where(fwd.t_final >= 1e-2, seg,
+                         torch.minimum(fwd.n_contrib.to(torch.int64) + 1,
+                                       seg))
+    walked = int(torch.where(px_mask, walked, torch.zeros_like(walked)).sum())
+    contribs = int(fwd.n_valid.to(torch.int64).sum())
+    assert contribs <= tested[0] < tested[1] < walked
+
+
+@pytest.mark.parametrize("tile", [(32, 32), (16, 16), (8, 16), (24, 32),
+                                  (16, 64), (12, 20), (30, 30)])
+def test_render_bwd_pixel_map_matches_mirror(dev, tile):
+    """The kernel's own pixel map (render_bwd.cu's bwd_tile_pixel) equals
+    render.bwd_pixel_map's CPU mirror, which test_torch_tile_scatter.py
+    holds to owning every tile pixel exactly once."""
+    k = render.bwd_pixel_map(*tile, device=dev).cpu()
+    assert torch.equal(k, render.bwd_pixel_map(*tile))
 
 
 @pytest.mark.parametrize("f,offset", [(12, 0), (2, 0), (12, 1), (5, 0)])

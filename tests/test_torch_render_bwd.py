@@ -62,7 +62,8 @@ def test_reference_matches_core_bwd_xla(tile, chunk, want):
         port["table"], port["tile_start"], port["tile_stop"],
         port["gt_tiles"], tuple(torch.as_tensor(np.array(x)) for x in totals),
         tuple(torch.as_tensor(c) for c in cots), want_med=want_med,
-        want_var=want_var, **tkw)
+        want_var=want_var, n_contrib=torch.as_tensor(np.array(fwd.n_contrib)),
+        **tkw)
     want_rows = np.concatenate(
         [np.asarray(x).reshape(rows.shape[0], -1) for x in a], axis=1)
     assert rows.shape == (port["table"].shape[0], render.ROW)
@@ -88,8 +89,9 @@ def test_reference_chunk_invariance():
     totals = (fwd.color, fwd.depth, fwd.weight, fwd.var, fwd.t_final)
     base = (port["table"], port["tile_start"], port["tile_stop"],
             port["gt_tiles"], totals, cots)
-    a = render.core_bwd(*base, **tkw)
-    b = render.core_bwd(*base, **dict(tkw, cfg=tkw["cfg"].replace(chunk=128)))
+    a = render.core_bwd(*base, n_contrib=fwd.n_contrib, **tkw)
+    b = render.core_bwd(*base, n_contrib=fwd.n_contrib,
+                        **dict(tkw, cfg=tkw["cfg"].replace(chunk=128)))
     np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4, atol=1e-5)
 
 
