@@ -11,10 +11,15 @@ the tracking benchmark's frame (``bench_tracking.py``: 100,000 Gaussians,
 1200x680, its record configuration) for tracking.  Phases:
 
 1. build every CUDA kernel from ``ops/kernels/csrc`` (one nvcc per source,
-   all started together) and print the compiler's register report;
+   all started together) and print the compiler's register report, one
+   line per kernel: registers, spills, stack, shared memory;
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes of the main paths, and print the largest errors: on the 100k
-   bench scene; ``render_jvp`` (light and full) on the tracking frame's
+   bench scene, and on the 500k map step's render below, ``render_fwd``
+   (two renders bit-equal; ``render_jvp``'s primal, light and full, with
+   seeded six-column tangent tables, bit-equal to it; its pair-counting
+   build changing no output bit) and the kernels after it;
+   ``render_jvp`` (light and full) on the tracking frame's
    full-resolution dual render (identity pose, the record configuration's
    frozen margin-2 binning, the 6 twist tangents), its primal bit-equal to
    ``render_fwd``'s and its tangents also against the plain version in
@@ -58,6 +63,7 @@ the tracking benchmark's frame (``bench_tracking.py``: 100,000 Gaussians,
    with F = 12 and at 100k with F = 2, by device time from
    torch.profiler, since their launch from Python outlasts them; the
    uncertainty sums against the sorted scatter they replaced;
+   ``render_fwd`` at 100k and at 500k, with the pairs it tests;
    ``render_bwd`` at 100k and at 500k, stopped at ``n_contrib`` and
    walking the whole segment, with the pairs it tests; ``render_jvp`` also
    with the pairs its culled walk tests), the whole forward, forward +
@@ -127,6 +133,29 @@ def card_line():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def register_report(text):
+    """One line per kernel of an ``nvcc -Xptxas -v`` log: its name and
+    template arguments, registers, spills, stack and shared memory."""
+    import re
+    lines, name, spill = [], None, ""
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"([a-z_]+_kernel)((?:I|L[ib]-?\d+E)*)", line)
+            name = m.group(1) if m else line.split("'")[1]
+            args = re.findall(r"L([ib])(-?\d+)E", m.group(2) if m else "")
+            if args:
+                name += "<" + ", ".join(
+                    v if t == "i" else ("true" if v == "1" else "false")
+                    for t, v in args) + ">"
+        elif name and "spill" in line:
+            spill = line.split(":")[-1].strip()
+        elif name and "registers" in line:
+            lines.append(f"{name}: {line.split(':', 1)[-1].strip()}; "
+                         f"{spill}")
+            name, spill = None, ""
+    return lines
 
 
 def time_ms(fn, iters, warmup=2):
@@ -329,6 +358,7 @@ def check_render_kernels(tag, table, binn, gt_tiles, core_kw, check, seed=0):
     dev = table.device
     start, stop = binn.tile_start, binn.tile_stop
     out_k = render.core_fwd(table, start, stop, gt_tiles, **core_kw)
+    again = render.core_fwd(table, start, stop, gt_tiles, **core_kw)
     out_p = render.core_fwd_reference(table, start, stop, gt_tiles,
                                       **core_kw)
     torch.cuda.synchronize()
@@ -336,6 +366,23 @@ def check_render_kernels(tag, table, binn, gt_tiles, core_kw, check, seed=0):
     log(f"[kernel] {tag}: render_fwd vs plain: " + json.dumps(rep))
     check(ok, f"{tag}: render_fwd matches its plain version (rtol 1e-4, "
               "atol 2e-5 on agreeing pixels; integer mismatch < 5e-3)")
+    check(all(torch.equal(a, b) for a, b in zip(out_k, again)),
+          f"{tag}: two render_fwd core renders are bit-equal")
+    # render_jvp's primal on the same table, with seeded tangent tables of
+    # the twist basis's width (K = 6), light and full: the two kernels cull
+    # differently but take the same contributing pairs in the same order
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for full in (False, True):
+        tans = torch.randn(table.shape[0], (6 if full else 3) * 6,
+                           generator=gen, device=dev)
+        primal, _ = render.core_fwd_jvp(table, tans, start, stop, gt_tiles,
+                                        **core_kw, full=full)
+        torch.cuda.synchronize()
+        check(all(torch.equal(getattr(primal, f), getattr(out_k, f))
+                  for f in out_k._fields),
+              f"{tag}: render_jvp's primal ({'full' if full else 'light'}) "
+              "is bit-equal to render_fwd's")
+        del tans, primal
 
     # render_bwd: the kernel's forward totals and seeded cotangents
     n_tiles, q = gt_tiles.shape
@@ -380,6 +427,16 @@ def check_render_kernels(tag, table, binn, gt_tiles, core_kw, check, seed=0):
     out_i = torch.empty((n_tiles, 3, q), dtype=torch.int32, device=dev)
     render.launch_render_fwd(table, start, stop, gt_tiles, out_f, out_i,
                              **core_kw)
+    # the counter build: the (instance, pixel) pairs render_fwd tests, and
+    # not one output bit changed by counting them
+    cnt_f, cnt_i = torch.empty_like(out_f), torch.empty_like(out_i)
+    pairs = torch.zeros(1, dtype=torch.int64, device=dev)
+    render.launch_render_fwd(table, start, stop, gt_tiles, cnt_f, cnt_i,
+                             **core_kw, pairs=pairs)
+    torch.cuda.synchronize()
+    check(torch.equal(cnt_f, out_f) and torch.equal(cnt_i, out_i),
+          f"{tag}: render_fwd's counter build changes no output bit")
+    del cnt_f, cnt_i
     n_inst = table.shape[0]
     ts_k = render.tile_scatter_sum(out_i[:, 2], out_f[:, 8], start, stop,
                                    n_inst)
@@ -433,8 +490,8 @@ def check_render_kernels(tag, table, binn, gt_tiles, core_kw, check, seed=0):
           "plain version on the CPU bit for bit")
     return dict(out_k=out_k, pix=pix, rows_k=rows_k, binn=binn, stats=stats,
                 table=table, gt_tiles=gt_tiles, out_f=out_f, out_i=out_i,
-                err_fwd=err_fwd, err_bwd=err_bwd, err_rows=err_rows,
-                err_u=err_u, err_ts=err_ts)
+                fwd_pairs=int(pairs), err_fwd=err_fwd, err_bwd=err_bwd,
+                err_rows=err_rows, err_u=err_u, err_ts=err_ts)
 
 
 def segment_sum_rows_times(tag, rows, binn, card):
@@ -555,6 +612,36 @@ def tile_scatter_worst_case(st, card, check):
     log(f"[time] {card}: tile_scatter_sum worst case, every one of "
         f"{n_tiles} x {q} pixels naming its own instance ({q // 32} passes "
         f"a tile): {ms:.4f} ms device time, index_add_ {ms_lib:.4f} ms")
+
+
+def render_fwd_times(tag, st, core_kw, card, plain_iters=3):
+    """``render_fwd`` at one render's shapes, as the main path launches it,
+    by CUDA events; its plain version; its bound; the (instance, pixel)
+    pairs the pixels' segments hold up to their termination (a walk without
+    culling), the pairs the kernel tests (its counter build, in phase 2)
+    and the contributions."""
+    from diff_gaussian_rasterization_tpu_torch.ops.kernels import render
+    table, binn, out_k = st["table"], st["binn"], st["out_k"]
+    gt_tiles, out_f, out_i = st["gt_tiles"], st["out_f"], st["out_i"]
+    start, stop = binn.tile_start, binn.tile_stop
+    n_tiles = gt_tiles.shape[0]
+    ms = time_ms(lambda: render.launch_render_fwd(
+        table, start, stop, gt_tiles, out_f, out_i, **core_kw), iters=50)
+    ms_plain = time_ms(lambda: render.core_fwd_reference(
+        table, start, stop, gt_tiles, **core_kw), iters=plain_iters,
+        warmup=1)
+    pixmask = render.pixel_coords(n_tiles, core_kw["tiles_x"],
+                                  core_kw["cfg"].tile_h,
+                                  core_kw["cfg"].tile_w, core_kw["height"],
+                                  core_kw["width"], table.device)[2]
+    bound, by, info = render_fwd_bound_ms(out_k, start, stop, pixmask)
+    log(f"[time] {card}: render_fwd ({tag}) kernel {ms:.4f} ms (bound "
+        f"{bound:.4f} ms by {by}: {json.dumps(info)}), plain version "
+        f"{ms_plain:.3f} ms; pairs tested {st['fwd_pairs']} of "
+        f"{info['pairs']} walked, for {info['contributions']} "
+        "contributions")
+    return dict(ms=ms, plain_ms=ms_plain, bound_ms=bound, bound_by=by,
+                library_ms=None)
 
 
 def render_bwd_times(tag, st, core_kw, card, plain_iters=2):
@@ -1061,9 +1148,8 @@ def main():
     logs = _build.build_all()
     log(f"[build] {len(logs)} source(s) in {time.time() - t0:.1f} s")
     for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
-                log(f"[build] {name}: {line.strip()}")
+        for line in register_report(text):
+            log(f"[build] {name}: {line}")
 
     # ---- 2. kernels against their plain versions -----------------------
     cfg = RasterConfig(tile_h=32, tile_w=32)
@@ -1304,16 +1390,9 @@ def main():
 
     # ---- 4. times ------------------------------------------------------
     render_kw = dict(max_instances=max_inst, **kw)
-    ms_fwd = time_ms(lambda: render.launch_render_fwd(
-        table, binn.tile_start, binn.tile_stop, gt_tiles, out_f, out_i,
-        **core_kw), iters=50)
-    ms_plain = time_ms(lambda: render.core_fwd_reference(
-        table, binn.tile_start, binn.tile_stop, gt_tiles, **core_kw),
-        iters=3, warmup=1)
-    bound_fwd, by_fwd, binfo = render_fwd_bound_ms(
-        out_k, binn.tile_start, binn.tile_stop,
-        render.pixel_coords(gt_tiles.shape[0], tiles_x, cfg.tile_h,
-                            cfg.tile_w, h, w, dev)[2])
+    fwd_t = {"100k": render_fwd_times("100k", bench, core_kw, card),
+             "500k": render_fwd_times("500k", mapped, core_kw, card,
+                                      plain_iters=1)}
     seg_kernel = lambda: render.segment_sum(seg_vals, seg_ones, bounds)
     ms_seg, ms_seg_ev = device_ms(seg_kernel), time_ms(seg_kernel, iters=50)
     ms_seg_plain = time_ms(lambda: render.segment_sum_reference(
@@ -1333,9 +1412,6 @@ def main():
                          iters=20)
         ms_front = time_ms(lambda: ras.prepare(
             means, cam, cfg, max_inst, kw["gt_depth"], **prep_kw), iters=20)
-    log(f"[time] {card}: render_fwd kernel {ms_fwd:.4f} ms "
-        f"(bound {bound_fwd:.4f} ms by {by_fwd}: {json.dumps(binfo)}), "
-        f"plain version {ms_plain:.3f} ms")
     log(f"[time] {card}: segment_sum kernel {ms_seg:.4f} ms device time "
         f"({ms_seg_ev:.4f} ms by CUDA events) on {n_vals} values / {n_seg} "
         f"segments (bound {bound_seg:.4f} ms by bytes), plain "
@@ -1407,16 +1483,17 @@ def main():
     err_fwd, err_bwd, err_rows, err_u, err_ts = (
         max(bench[k], mapped[k])
         for k in ("err_fwd", "err_bwd", "err_rows", "err_u", "err_ts"))
-    kernels = [
-        dict(name="render_fwd", route="cuda",
-             source="diff_gaussian_rasterization_tpu_torch/ops/kernels/csrc/"
-                    "render_fwd.cu",
-             replaces="diff_gaussian_rasterization_tpu/ops/kernels/"
-                      "render_pallas.py:157",
-             launches=counts["render_fwd"], max_abs_err=err_fwd,
-             ms=ms_fwd, plain_ms=ms_plain, bound_ms=bound_fwd,
-             bound_by=by_fwd, library_ms=None),
-    ] + [dict(name=name, route="cuda",
+    kernels = [dict(name=name, route="cuda",
+                    source="diff_gaussian_rasterization_tpu_torch/ops/"
+                           "kernels/csrc/render_fwd.cu",
+                    replaces="diff_gaussian_rasterization_tpu/ops/kernels/"
+                             "render_pallas.py:157",
+                    launches=n, max_abs_err=err_fwd, **fwd_t[tag])
+               # the renders of the forward; the map steps' renders
+               for name, tag, n in (
+                   ("render_fwd", "100k", counts["render_fwd"]),
+                   ("render_fwd_500k", "500k", counts_map["render_fwd"]))
+               ] + [dict(name=name, route="cuda",
               source="diff_gaussian_rasterization_tpu_torch/ops/kernels/"
                      "csrc/render_fwd.cu",
               replaces="diff_gaussian_rasterization_tpu/ops/kernels/"

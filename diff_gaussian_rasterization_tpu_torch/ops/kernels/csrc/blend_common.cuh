@@ -1,13 +1,15 @@
-// What the tile kernels share: the launch parameters, the forward's pixels
-// per thread, the expressions of the test that decides, for one (instance,
-// pixel) pair, whether the instance is skipped, contributes, or ends the
-// pixel, and the culling box outside which that test always skips.  Every
-// kernel evaluates the test in this one expression order, so the backward
-// walks exactly the pairs the forward blended: a pixel on a threshold
-// terminates at the same instance in every pass.
+// What the tile kernels share: the launch parameters, the pixel map and
+// the staging of a round that render_fwd and render_bwd both use, the
+// expressions of the test that decides, for one (instance, pixel) pair,
+// whether the instance is skipped, contributes, or ends the pixel, and the
+// culling box outside which that test always skips.  Every kernel
+// evaluates the test in this one expression order, so the backward walks
+// exactly the pairs the forward blended: a pixel on a threshold terminates
+// at the same instance in every pass.
 
 #pragma once
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -23,17 +25,64 @@ struct Params {
   float alpha_cap, alpha_min, t_terminate;
 };
 
-// Pixel k of this thread is tile pixel threadIdx.x + k * kThreads.
-// Returns whether it lies in the tile and in the image.
-__device__ __forceinline__ bool pixel_of(const Params& prm, int t, int k,
-                                         float& px, float& py) {
-  const int q = prm.tile_w * prm.tile_h;
-  const int qi = threadIdx.x + k * kThreads;
-  const int pxi = (t % prm.tiles_x) * prm.tile_w + qi % prm.tile_w;
-  const int pyi = (t / prm.tiles_x) * prm.tile_h + qi / prm.tile_w;
-  px = (float)pxi;
-  py = (float)pyi;
-  return qi < q && pxi < prm.width && pyi < prm.height;
+constexpr int kFeatPad = 12;   // floats of a feature row staged in shared
+                               // memory: three 16-byte vectors
+
+// Pixels a thread for a tile of q pixels in a block of kThreads (0: the
+// tile is too large).
+__host__ __device__ inline int pixels_per_thread(int q) {
+  if (q <= kThreads) return 1;
+  if (q <= 2 * kThreads) return 2;
+  if (q <= 4 * kThreads) return 4;
+  return 0;
+}
+
+// Tile pixel k of lane `lane` of warp `warp` (q when it has none), for PPT
+// pixels a thread: the map of render_fwd and render_bwd (render.py's
+// bwd_pixel_map mirrors it, render_bwd_pixel_map exports it).  When the
+// tile divides into 8x4 patches, lane l owns pixel (l % 8, l / 8) of each
+// of its warp's PPT sub-patches: with four pixels a thread and an even
+// number of patches across and down, the 2x2 block of patches
+// (bx, by) = (warp % (across / 2), warp / (across / 2)), a 16x8 region;
+// otherwise the PPT consecutive patches warp * PPT + k, row-major.  Any
+// other tile takes pixel threadIdx.x + k * kThreads.
+template <int PPT>
+__host__ __device__ __forceinline__ int patch_pixel(int tile_w, int tile_h,
+                                                    int warp, int lane,
+                                                    int k) {
+  const int q = tile_w * tile_h;
+  if ((tile_w & 7) != 0 || (tile_h & 3) != 0) {
+    const int qi = warp * 32 + lane + k * kThreads;
+    return qi < q ? qi : q;
+  }
+  const int across = tile_w >> 3, down = tile_h >> 2;
+  int pxp, pyp;
+  if (PPT == 4 && (across & 1) == 0 && (down & 1) == 0) {
+    const int half = across >> 1;
+    pxp = 2 * (warp % half) + (k & 1);
+    pyp = 2 * (warp / half) + (k >> 1);
+  } else {
+    const int patch = warp * PPT + k;
+    pxp = patch % across;
+    pyp = patch / across;
+  }
+  if (pyp >= down) return q;
+  return (pyp * 4 + (lane >> 3)) * tile_w + pxp * 8 + (lane & 7);
+}
+
+// Start the copies of feature rows [b0, b0 + n) into a stage of a ring in
+// shared memory, 4 bytes each into rows padded to kFeatPad floats, and
+// commit them as one group (all kThreads threads take part).
+__device__ __forceinline__ void stage_features(float* dst,
+                                               const float* __restrict__ feat,
+                                               int b0, int n) {
+  const float* src = feat + (size_t)b0 * kFeat;
+  for (int i = threadIdx.x; i < n * kFeat; i += kThreads) {
+    const int r = i / kFeat;
+    __pipeline_memcpy_async(dst + r * kFeatPad + (i - r * kFeat), src + i,
+                            sizeof(float));
+  }
+  __pipeline_commit();
 }
 
 // The fields of one staged instance that the test reads, loaded into

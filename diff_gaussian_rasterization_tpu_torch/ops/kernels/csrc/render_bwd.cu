@@ -40,9 +40,10 @@
 // - Pixels.  256 threads a block, up to four pixels a thread (PPT).  Each
 //   warp owns PPT compact 8x4 sub-patches (a 16x8 region of a 32x32 tile),
 //   lane l pixel l of each; a tile that does not divide into 8x4 patches
-//   falls back to the forward's map (pixel threadIdx.x + k * 256).
-//   bwd_tile_pixel below is that map; render.py's bwd_pixel_map mirrors it
-//   and render_bwd_pixel_map exports it for the checks.
+//   falls back to pixel threadIdx.x + k * 256.  That map is
+//   blend_common.cuh's patch_pixel, which the forward shares; render.py's
+//   bwd_pixel_map mirrors it and render_bwd_pixel_map exports it for the
+//   checks.
 // - Exact culling.  A pair with alpha < alpha_min adds nothing to any row,
 //   so skipping it leaves every row as it was.  Each staged instance's
 //   blend_common.cuh cull_box is computed once a round; each warp takes
@@ -118,61 +119,17 @@
 namespace {
 
 using blend::kFeat;
+using blend::kFeatPad;
 using blend::kThreads;
 using blend::Params;
+using blend::pixels_per_thread;
 
 constexpr int kWarps = kThreads / 32;
 constexpr int kBatch = 64;     // instances staged (and reduced) per round
-constexpr int kFeatPad = 12;   // floats of a staged feature row
 constexpr int kPix = 10;       // per-pixel constant rows
 constexpr int kRow = 12;       // gradient columns
 constexpr int kMinBlocks = 2;  // resident blocks an SM
 constexpr unsigned kFull = 0xffffffffu;
-
-// Tile pixel k of lane `lane` of warp `warp` (q when it has none), for PPT
-// pixels a thread.  When the tile divides into 8x4 patches, lane l owns
-// pixel (l % 8, l / 8) of each of its warp's PPT patches: with four pixels
-// a thread and an even number of patches across and down, the 2x2 block of
-// patches (bx, by) = (warp % (across / 2), warp / (across / 2)); otherwise
-// the PPT consecutive patches warp * PPT + k, row-major.  Any other tile
-// takes the forward's map, pixel threadIdx.x + k * kThreads.
-template <int PPT>
-__host__ __device__ __forceinline__ int bwd_tile_pixel(int tile_w, int tile_h,
-                                                        int warp, int lane,
-                                                        int k) {
-  const int q = tile_w * tile_h;
-  if ((tile_w & 7) != 0 || (tile_h & 3) != 0) {
-    const int qi = warp * 32 + lane + k * kThreads;
-    return qi < q ? qi : q;
-  }
-  const int across = tile_w >> 3, down = tile_h >> 2;
-  int pxp, pyp;
-  if (PPT == 4 && (across & 1) == 0 && (down & 1) == 0) {
-    const int half = across >> 1;
-    pxp = 2 * (warp % half) + (k & 1);
-    pyp = 2 * (warp / half) + (k >> 1);
-  } else {
-    const int patch = warp * PPT + k;
-    pxp = patch % across;
-    pyp = patch / across;
-  }
-  if (pyp >= down) return q;
-  return (pyp * 4 + (lane >> 3)) * tile_w + pxp * 8 + (lane & 7);
-}
-
-// Start one round's feature copies into a stage of the ring, 4 bytes each
-// into rows padded to kFeatPad floats, and commit them as one group.
-__device__ __forceinline__ void stage_round(float* dst,
-                                            const float* __restrict__ feat,
-                                            int b0, int n) {
-  const float* src = feat + (size_t)b0 * kFeat;
-  for (int i = threadIdx.x; i < n * kFeat; i += kThreads) {
-    const int r = i / kFeat;
-    __pipeline_memcpy_async(dst + r * kFeatPad + (i - r * kFeat), src + i,
-                            sizeof(float));
-  }
-  __pipeline_commit();
-}
 
 // The warp's sums acc[12] reduced over its 32 lanes by a reduce-scatter
 // butterfly: lane l ends with the warp's total of column bwd_column(l)
@@ -251,8 +208,8 @@ render_bwd_kernel(const float* __restrict__ feat,
 
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
-    const int qi = bwd_tile_pixel<PPT>(prm.tile_w, prm.tile_h, warp, lane,
-                                       k);
+    const int qi = blend::patch_pixel<PPT>(prm.tile_w, prm.tile_h, warp,
+                                           lane, k);
     const int pxi = tx0 + qi % prm.tile_w;
     const int pyi = ty0 + qi / prm.tile_w;
     const bool live = qi < q && pxi < prm.width && pyi < prm.height;
@@ -297,7 +254,7 @@ render_bwd_kernel(const float* __restrict__ feat,
   const int end = start + tile_lim;  // the block walks [start, end)
 
   if (start < end) {
-    stage_round(s_feat[0], feat, start, min(kBatch, end - start));
+    blend::stage_features(s_feat[0], feat, start, min(kBatch, end - start));
   }
   int stage = 0;
   for (int b0 = start; b0 < end; b0 += kBatch, stage ^= 1) {
@@ -309,8 +266,8 @@ render_bwd_kernel(const float* __restrict__ feat,
     __syncthreads();
     const int n = min(kBatch, end - b0);
     if (b0 + kBatch < end) {
-      stage_round(s_feat[stage ^ 1], feat, b0 + kBatch,
-                  min(kBatch, end - b0 - kBatch));
+      blend::stage_features(s_feat[stage ^ 1], feat, b0 + kBatch,
+                            min(kBatch, end - b0 - kBatch));
     }
     const float* sf = s_feat[stage];
     if (threadIdx.x < n) {
@@ -465,15 +422,7 @@ __global__ void pixel_map_kernel(int tile_w, int tile_h, int* out) {
 #pragma unroll
   for (int k = 0; k < PPT; ++k)
     out[threadIdx.x * PPT + k] =
-        bwd_tile_pixel<PPT>(tile_w, tile_h, warp, lane, k);
-}
-
-// Pixels a thread for a tile of q pixels (0: the tile is too large).
-int pixels_per_thread(int q) {
-  if (q <= kThreads) return 1;
-  if (q <= 2 * kThreads) return 2;
-  if (q <= 4 * kThreads) return 4;
-  return 0;
+        blend::patch_pixel<PPT>(tile_w, tile_h, warp, lane, k);
 }
 
 constexpr int kSumWarps = 8;  // warps a block, 32 Gaussians each
@@ -638,9 +587,9 @@ extern "C" int render_bwd(const float* feat, const int* tile_start,
   }
 }
 
-// out[thread * ppt + k] = render_bwd's tile pixel k of each of its
-// kThreads threads (tile_w * tile_h where it has none); ppt is 1, 2 or 4
-// as the tile's size gives it.
+// out[thread * ppt + k] = the tile pixel k of each of the kThreads threads
+// of render_bwd and render_fwd (blend_common.cuh's patch_pixel; tile_w *
+// tile_h where it has none); ppt is 1, 2 or 4 as the tile's size gives it.
 extern "C" int render_bwd_pixel_map(int tile_w, int tile_h, int* out,
                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -5,10 +5,10 @@
 // by `core_fwd` there), and, in `tile_scatter_sum` below, the scatter of the
 // per-pixel median-crossing statistics that follows it (render_pallas.py:390).
 //
-// What it computes.  One thread block per image tile.  The tile's instances
-// are a contiguous, depth-sorted segment [tile_start, tile_stop) of the
-// sorted feature table feat[cap, 11] = (x, y, A, B, C, opacity, r, g, b,
-// depth, depth_sgview).  Each pixel walks the segment front to back:
+// What render_fwd computes.  One thread block per image tile.  The tile's
+// instances are a contiguous, depth-sorted segment [tile_start, tile_stop)
+// of the sorted feature table feat[cap, 11] = (x, y, A, B, C, opacity, r,
+// g, b, depth, depth_sgview).  Each pixel walks the segment front to back:
 //   power = -0.5 (A dx^2 + C dy^2) - B dx dy;    skip if power > 0
 //   alpha = min(alpha_cap, opacity * exp(power)); skip if alpha < alpha_min
 //   stop before accumulating once T * (1 - alpha) < t_terminate
@@ -21,25 +21,53 @@
 //
 // What bounds it on an H100.  The least work is the pairs that contribute
 // (a pair below alpha_min changes nothing, and an exact test can skip it):
-// about 36 FP32 operations and one expf each, ~1.0 G operations at the
-// bench scale (1200x680, 100k Gaussians, ~234k instances), about 16 us at
-// 67 TFLOP/s of FP32; the features, ground-truth depth and outputs are
-// about 55 MB, also about 16 us at 3.35 TB/s.  This design tests every
-// pair a pixel walks before it terminates, about four times the
-// contributions, so those pair tests bound it.
+// the pair test (~24 FP32 operations, the expf counted as 8) and ~20 for
+// the sums, ~1.0 G operations for the bench scene's 23.6 M contributions
+// (1200x680, 100k Gaussians, ~234k instances), ~16 us at 67 TFLOP/s; the
+// features, ground truth and outputs are ~53.5 MB, ~16 us at 3.35 TB/s.
+// A walk without culling tests every pair up to each pixel's termination,
+// 93.0 M there, four times the contributions: those tests, and the shared
+// memory reads that feed them, are the kernel's overhead.
 //
-// What this simple design does about that.  256 threads per block, each
-// owning up to four pixels of the tile in registers (a 32x32 tile is 1024
-// pixels).  The segment is staged through shared memory in batches of 256
-// instances (11 KB), read with coalesced loads, and every thread reads each
-// staged instance from shared memory by broadcast.  A block-wide vote
-// (__syncthreads_count) ends the tile as soon as every pixel has
-// terminated.  Register blocking, cp.async double buffering and a
-// persistent tile loop are left for later.
+// The design for this card:
+// - Pixels.  256 threads a block, up to four pixels a thread (PPT) in
+//   registers, on blend_common.cuh's patch_pixel, the map render_bwd uses:
+//   a warp owns PPT compact 8x4 sub-patches (a 16x8 region of a 32x32
+//   tile), lane l pixel l of each; a tile that does not divide into 8x4
+//   patches falls back to pixel threadIdx.x + k * 256.  Each staged
+//   instance read from shared memory serves a thread's PPT pixels.
+// - Exact culling per sub-patch.  After a round lands, each instance's
+//   cull_box (blend_common.cuh) is computed once, and each warp rebuilds
+//   its sub-patches' boxes from their live pixels: a pixel that has
+//   terminated, or lies past the image, pulls in no instance, and a
+//   sub-patch with no live pixel meets none.  The warp takes the round 32
+//   instances at a time: each lane tests one instance's box against the
+//   sub-patch boxes, one ballot picks the instances that meet any, and for
+//   those only the sub-patches they meet run the per-pair test, in segment
+//   order.  A pair outside the box has alpha < alpha_min, which the blend
+//   skips too, so every output is what the whole walk gives, n_contrib
+//   included.
+// - Staging.  Rounds of kBatch instances through a two-stage ring with
+//   cp.async: round r + 1 loads while round r blends; a feature row is
+//   padded to 12 floats and read as three 16-byte vectors.  One block-wide
+//   vote a round (__syncthreads_count) ends the tile once every pixel has
+//   terminated; that barrier also orders the last round's shared reads
+//   before the copies into that stage.
+// - Occupancy.  __launch_bounds__(kThreads, kMinBlocks): three blocks an
+//   SM at 78 registers, no spill (the -Xptxas -v report, which
+//   chip_smoke.py prints).  To fit, a pixel keeps in registers only what
+//   the blend updates: the median crossing, which happens at most once a
+//   pixel (T only falls), leaves its instance and weight in shared memory,
+//   and the median depth and the crossing's moments are read back from
+//   that instance's row at the end, with the blend's own expressions.
+// - pairs (optional, null on the main path): a variant of the kernel adds
+//   the (instance, pixel) pairs it tested, for the report beside the bound.
 //
 // The per-pair test's expressions live in blend_common.cuh, shared with
-// the backward kernel (render_bwd.cu), so both passes make the same
-// decisions bit for bit.
+// render_bwd and render_jvp, so every pass makes the same decisions bit for
+// bit; render_jvp's primal takes the same sums in the same order (the
+// crossing's inside its loop: sums of one term), so its primal outputs are
+// bit-equal to these.
 //
 // Numerics.  Built without --use_fast_math and with --fmad=false, so each
 // operation rounds as the plain PyTorch version's elementwise ops do; the
@@ -91,101 +119,201 @@
 namespace {
 
 using blend::kFeat;
+using blend::kFeatPad;
 using blend::kThreads;
 using blend::Params;
+using blend::pixels_per_thread;
 
-constexpr int kBatch = 256;  // instances staged in shared memory per round
+constexpr unsigned kAll = 0xffffffffu;
+// instances staged per round, one culling box per thread (on an H100, 128
+// took 3% longer at the bench scene and 1% less at the 500k map step's
+// render, 64 9% and 2% longer)
+constexpr int kBatch = 256;
+static_assert(kBatch <= kThreads, "a thread computes a staged row's box");
+constexpr int kWarps = kThreads / 32;
+// resident blocks an SM: 78 registers a thread, no spill (two blocks, at
+// 112 registers, took 18% longer at the bench scene on an H100)
+constexpr int kMinBlocks = 3;
 
-template <int PPT>  // pixels per thread
-__global__ void __launch_bounds__(kThreads)
+template <int PPT, bool kCount>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 render_fwd_kernel(const float* __restrict__ feat,
                   const int* __restrict__ tile_start,
                   const int* __restrict__ tile_stop,
                   const float* __restrict__ gt,
                   float* __restrict__ out_f, int* __restrict__ out_i,
-                  Params prm) {
-  __shared__ float s_feat[kBatch * kFeat];
+                  Params prm, unsigned long long* __restrict__ pairs) {
+  __shared__ __align__(16) float s_feat[2][kBatch * kFeatPad];
+  __shared__ float4 s_box[kBatch];
+  __shared__ float4 s_pbox[kWarps][PPT];  // live pixels' box of a sub-patch
+  // per pixel, the instance and weight w of its median crossing, set at
+  // most once (T only falls): kept out of the registers the blend needs
+  __shared__ int s_midx[PPT][kThreads];
+  __shared__ float s_wx[PPT][kThreads];
 
   const int t = blockIdx.x;
   const int q = prm.tile_w * prm.tile_h;
   const int start = tile_start[t];
   const int stop = tile_stop[t];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int tx0 = (t % prm.tiles_x) * prm.tile_w;
+  const int ty0 = (t / prm.tiles_x) * prm.tile_h;
 
+  // per pixel its position and blend state; bit k of `live`: pixel k lies
+  // in the tile and the image and has not terminated.  dep is also the
+  // variance's first moment (the sum of d w, the same sum).  The median
+  // depth and the crossing's moments are read back from the crossing
+  // instance's row at the end.
   float px[PPT], py[PPT], T[PPT];
-  float c0[PPT], c1[PPT], c2[PPT], dep[PPT], wgt[PPT], med[PPT];
-  float vdd[PPT], vd[PPT], udd[PPT], ud[PPT], uw[PPT];
-  int ncon[PPT], nval[PPT], midx[PPT];
-  bool done[PPT];
+  float c0[PPT], c1[PPT], c2[PPT], dep[PPT], wgt[PPT], vdd[PPT];
+  int ncon[PPT], nval[PPT];
+  unsigned live = 0;
+  unsigned tested = 0;
 
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
-    done[k] = !blend::pixel_of(prm, t, k, px[k], py[k]);
+    const int qi = blend::patch_pixel<PPT>(prm.tile_w, prm.tile_h, warp,
+                                           lane, k);
+    const int pxi = tx0 + qi % prm.tile_w;
+    const int pyi = ty0 + qi / prm.tile_w;
+    if (qi < q && pxi < prm.width && pyi < prm.height) live |= 1u << k;
+    px[k] = (float)pxi;
+    py[k] = (float)pyi;
     T[k] = 1.f;
-    c0[k] = c1[k] = c2[k] = dep[k] = wgt[k] = med[k] = 0.f;
-    vdd[k] = vd[k] = udd[k] = ud[k] = uw[k] = 0.f;
+    c0[k] = c1[k] = c2[k] = dep[k] = wgt[k] = vdd[k] = 0.f;
     ncon[k] = nval[k] = 0;
-    midx[k] = -1;
+    s_midx[k][threadIdx.x] = -1;
+    s_wx[k][threadIdx.x] = 0.f;
   }
 
-  for (int b0 = start; b0 < stop; b0 += kBatch) {
-    int live = 0;
-#pragma unroll
-    for (int k = 0; k < PPT; ++k) live |= !done[k];
-    // barrier + vote: also orders the previous round's shared reads
-    // before this round's writes
-    if (__syncthreads_count(live) == 0) break;
-
+  if (start < stop) {
+    blend::stage_features(s_feat[0], feat, start, min(kBatch, stop - start));
+  }
+  int stage = 0;
+  for (int b0 = start; b0 < stop; b0 += kBatch, stage ^= 1) {
+    // this round's copies have landed (for this thread's part of them);
+    // the barrier makes all parts visible, orders every warp's reads of the
+    // other stage, s_box and s_pbox in the last round before the writes
+    // below, and ends the tile once no pixel is live
+    __pipeline_wait_prior(0);
+    if (__syncthreads_count(live != 0) == 0) break;
     const int n = min(kBatch, stop - b0);
-    const float* src = feat + (size_t)b0 * kFeat;
-    for (int i = threadIdx.x; i < n * kFeat; i += kThreads) s_feat[i] = src[i];
+    if (b0 + kBatch < stop) {
+      blend::stage_features(s_feat[stage ^ 1], feat, b0 + kBatch,
+                            min(kBatch, stop - b0 - kBatch));
+    }
+    const float* sf = s_feat[stage];
+    if (threadIdx.x < n) {
+      s_box[threadIdx.x] = blend::cull_box(sf + threadIdx.x * kFeatPad,
+                                           prm.alpha_min);
+    }
+    // the warp's sub-patch boxes over their live pixels; bit k of wlive
+    // (the same on every lane): sub-patch k has one
+    unsigned wlive = 0;
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      const bool on = (live >> k) & 1u;
+      const int xi = (int)px[k], yi = (int)py[k];
+      const int x0 = __reduce_min_sync(kAll, on ? xi : INT_MAX);
+      const int x1 = __reduce_max_sync(kAll, on ? xi : INT_MIN);
+      const int y0 = __reduce_min_sync(kAll, on ? yi : INT_MAX);
+      const int y1 = __reduce_max_sync(kAll, on ? yi : INT_MIN);
+      if (x0 <= x1) wlive |= 1u << k;
+      if (lane == 0) {
+        s_pbox[warp][k] = make_float4((float)x0, (float)x1, (float)y0,
+                                      (float)y1);
+      }
+    }
     __syncthreads();
 
-    for (int j = 0; j < n; ++j) {
-      const float* f = s_feat + j * kFeat;
-      const blend::Splat g = blend::load_splat(f);
+    for (int j0 = 0; j0 < n; j0 += 32) {
+      if (!__any_sync(kAll, live != 0)) break;
+      // which of the warp's live sub-patches instance j0 + lane meets
+      unsigned meets = 0;
+      if (j0 + lane < n) {
+        const float4 b = s_box[j0 + lane];
 #pragma unroll
-      for (int k = 0; k < PPT; ++k) {
-        if (done[k]) continue;
-        const float dx = g.x - px[k];
-        const float dy = g.y - py[k];
-        const float power = blend::splat_power(g, dx, dy);
-        if (power > 0.f) continue;
-        const float G = expf(power);
-        const float alpha = blend::splat_alpha(g, G, prm);
-        if (alpha < prm.alpha_min) continue;
-        const float test_T = T[k] * (1.f - alpha);
-        if (test_T < prm.t_terminate) {
-          done[k] = true;
-          continue;
+        for (int k = 0; k < PPT; ++k) {
+          if (!((wlive >> k) & 1u)) continue;
+          const float4 pb = s_pbox[warp][k];
+          if (blend::box_meets(b, pb.x, pb.y, pb.z, pb.w)) meets |= 1u << k;
         }
-        const float w = alpha * T[k];
-        const float d = f[9];
-        const float d2 = d * d;
-        c0[k] += f[6] * w;
-        c1[k] += f[7] * w;
-        c2[k] += f[8] * w;
-        dep[k] += d * w;
-        wgt[k] += w;
-        vdd[k] += d2 * w;
-        vd[k] += d * w;
-        if (T[k] > 0.5f && test_T < 0.5f) {
-          med[k] = f[10];
-          midx[k] = b0 + j;
-          udd[k] += d2 * w;
-          ud[k] += d * w;
-          uw[k] += w;
+      }
+      unsigned todo = __ballot_sync(kAll, meets != 0);
+      while (todo) {
+        const int jj = __ffs(todo) - 1;
+        todo &= todo - 1;
+        const unsigned mj = __shfl_sync(kAll, meets, jj);
+        const int j = j0 + jj;
+        const float4* f4 = reinterpret_cast<const float4*>(sf + j * kFeatPad);
+        const float4 fa = f4[0];  // x, y, A, B
+        const float4 fb = f4[1];  // C, opacity, r, g
+        const blend::Splat g{fa.x, fa.y, fa.z, fa.w, fb.x, fb.y};
+#pragma unroll
+        for (int k = 0; k < PPT; ++k) {
+          if (!((mj >> k) & 1u)) continue;  // the same for the whole warp
+          if constexpr (kCount) tested += (live >> k) & 1u;
+          if (!((live >> k) & 1u)) continue;
+          const float dx = g.x - px[k];
+          const float dy = g.y - py[k];
+          const float power = blend::splat_power(g, dx, dy);
+          if (power > 0.f) continue;
+          const float G = expf(power);
+          const float alpha = blend::splat_alpha(g, G, prm);
+          if (alpha < prm.alpha_min) continue;
+          const float test_T = T[k] * (1.f - alpha);
+          if (test_T < prm.t_terminate) {
+            live &= ~(1u << k);
+            continue;
+          }
+          const float4 fc = f4[2];  // b, depth, depth_sgview, (pad)
+          const float w = alpha * T[k];
+          const float d = fc.y;
+          const float d2 = d * d;
+          c0[k] += fb.z * w;
+          c1[k] += fb.w * w;
+          c2[k] += fc.x * w;
+          dep[k] += d * w;
+          wgt[k] += w;
+          vdd[k] += d2 * w;
+          if (T[k] > 0.5f && test_T < 0.5f) {
+            s_midx[k][threadIdx.x] = b0 + j;
+            s_wx[k][threadIdx.x] = w;
+          }
+          T[k] = test_T;
+          ncon[k] = b0 - start + j + 1;
+          nval[k] += 1;
         }
-        T[k] = test_T;
-        ncon[k] = b0 - start + j + 1;
-        nval[k] += 1;
       }
     }
   }
 
+  if constexpr (kCount) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      tested += __shfl_down_sync(kAll, tested, off);
+    if (lane == 0 && tested != 0) {
+      atomicAdd(pairs, (unsigned long long)tested);
+    }
+  }
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
-    const int qi = threadIdx.x + k * kThreads;
+    const int qi = blend::patch_pixel<PPT>(prm.tile_w, prm.tile_h, warp,
+                                           lane, k);
     if (qi >= q) continue;
+    // the crossing's sums, one term each, as the blend would take them
+    const int mi = s_midx[k][threadIdx.x];
+    float med = 0.f, udd = 0.f, ud = 0.f, uw = 0.f;
+    if (mi >= 0) {
+      const float* f = feat + (size_t)mi * kFeat;
+      const float d = f[9], w = s_wx[k][threadIdx.x];
+      const float d2 = d * d;
+      med = f[10];
+      udd += d2 * w;
+      ud += d * w;
+      uw += w;
+    }
     const float g = gt[(size_t)t * q + qi];
     float* of = out_f + (size_t)t * 9 * q + qi;
     int* oi = out_i + (size_t)t * 3 * q + qi;
@@ -194,17 +322,31 @@ render_fwd_kernel(const float* __restrict__ feat,
     of[2 * q] = c2[k];
     of[3 * q] = dep[k];
     of[4 * q] = wgt[k];
-    of[5 * q] = med[k];
-    of[6 * q] = vdd[k] - 2.f * g * vd[k] + g * g * wgt[k];
+    of[5 * q] = med;
+    of[6 * q] = vdd[k] - 2.f * g * dep[k] + g * g * wgt[k];
     of[7 * q] = T[k];
-    of[8 * q] = udd[k] - 2.f * g * ud[k] + g * g * uw[k];
+    of[8 * q] = udd - 2.f * g * ud + g * g * uw;
     oi[0 * q] = ncon[k];
     oi[1 * q] = nval[k];
-    oi[2 * q] = midx[k];
+    oi[2 * q] = mi;
   }
 }
 
-constexpr unsigned kAll = 0xffffffffu;
+template <int PPT>
+cudaError_t launch_fwd(int n_tiles, cudaStream_t s, const float* feat,
+                       const int* tile_start, const int* tile_stop,
+                       const float* gt, float* out_f, int* out_i,
+                       const Params& prm, unsigned long long* pairs) {
+  if (pairs != nullptr) {
+    render_fwd_kernel<PPT, true><<<n_tiles, kThreads, 0, s>>>(
+        feat, tile_start, tile_stop, gt, out_f, out_i, prm, pairs);
+  } else {
+    render_fwd_kernel<PPT, false><<<n_tiles, kThreads, 0, s>>>(
+        feat, tile_start, tile_stop, gt, out_f, out_i, prm, pairs);
+  }
+  return cudaGetLastError();
+}
+
 constexpr int kFew = 32;  // distinct instances a pass sums
 constexpr int E = 4;      // pixels a thread
 
@@ -381,29 +523,34 @@ __global__ void segment_sum_kernel(const float* __restrict__ vals,
 
 }  // namespace
 
+// out_f [n_tiles, 9, q] and out_i [n_tiles, 3, q] of the forward blend;
+// pairs may be null.
 extern "C" int render_fwd(const float* feat, const int* tile_start,
                           const int* tile_stop, const float* gt, float* out_f,
                           int* out_i, int n_tiles, int tiles_x, int tile_w,
                           int tile_h, int width, int height, float alpha_cap,
-                          float alpha_min, float t_terminate, void* stream) {
+                          float alpha_min, float t_terminate,
+                          unsigned long long* pairs, void* stream) {
   const Params prm{tiles_x, tile_w, tile_h, width, height,
                    alpha_cap, alpha_min, t_terminate};
-  const int q = tile_w * tile_h;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_tiles <= 0) return 0;
-  if (q <= kThreads) {
-    render_fwd_kernel<1><<<n_tiles, kThreads, 0, s>>>(
-        feat, tile_start, tile_stop, gt, out_f, out_i, prm);
-  } else if (q <= 2 * kThreads) {
-    render_fwd_kernel<2><<<n_tiles, kThreads, 0, s>>>(
-        feat, tile_start, tile_stop, gt, out_f, out_i, prm);
-  } else if (q <= 4 * kThreads) {
-    render_fwd_kernel<4><<<n_tiles, kThreads, 0, s>>>(
-        feat, tile_start, tile_stop, gt, out_f, out_i, prm);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+  switch (pixels_per_thread(tile_w * tile_h)) {
+    case 1:
+      return static_cast<int>(launch_fwd<1>(n_tiles, s, feat, tile_start,
+                                            tile_stop, gt, out_f, out_i, prm,
+                                            pairs));
+    case 2:
+      return static_cast<int>(launch_fwd<2>(n_tiles, s, feat, tile_start,
+                                            tile_stop, gt, out_f, out_i, prm,
+                                            pairs));
+    case 4:
+      return static_cast<int>(launch_fwd<4>(n_tiles, s, feat, tile_start,
+                                            tile_stop, gt, out_f, out_i, prm,
+                                            pairs));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // u_inst, npix_inst (zero-filled by the caller) from the forward's

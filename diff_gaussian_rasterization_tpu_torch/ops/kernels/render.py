@@ -65,7 +65,7 @@ ROW = len(ROW_COLUMNS)
 TILE_BATCH = 64  # tiles the plain versions blend at once
 
 JVP_GROUP = 6  # tangents one render_jvp launch carries (the twist basis)
-BWD_THREADS = 256  # threads of a render_bwd block
+BWD_THREADS = 256  # threads of a render_fwd or render_bwd block
 # blend_common.cuh's cull_box: relative slack against float32 rounding, and
 # the absolute widening in pixels
 CULL_REL = 2e-5
@@ -391,18 +391,22 @@ def _check_core_inputs(table, tile_start, tile_stop, gt_tiles,
 
 def launch_render_fwd(table, tile_start, tile_stop, gt_tiles, out_f, out_i,
                       *, cfg: RasterConfig, tiles_x: int, height: int,
-                      width: int):
+                      width: int, pairs=None):
     """One launch of the ``render_fwd`` kernel into preallocated
     ``out_f`` [T, 9, Q] float32 and ``out_i`` [T, 3, Q] int32 (inputs
-    checked by :func:`core_fwd`)."""
+    checked by :func:`core_fwd`).  ``pairs``, a CUDA int64 [1] tensor, if
+    given, gets the (instance, pixel) pairs the kernel tested added to
+    it."""
     from ._build import load
+    pairs_ptr = None if pairs is None else pairs.data_ptr()
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = load("render_fwd").render_fwd(
             table.data_ptr(), tile_start.data_ptr(), tile_stop.data_ptr(),
             gt_tiles.data_ptr(), out_f.data_ptr(), out_i.data_ptr(),
             tile_start.shape[0], tiles_x, cfg.tile_w, cfg.tile_h, width,
-            height, cfg.alpha_cap, cfg.alpha_min, cfg.t_terminate, stream)
+            height, cfg.alpha_cap, cfg.alpha_min, cfg.t_terminate, pairs_ptr,
+            stream)
     if rc != 0:
         raise RuntimeError(f"render_fwd launch failed: CUDA error {rc}")
     launches["render_fwd"] += 1
@@ -431,16 +435,17 @@ def core_fwd(table, tile_start, tile_stop, gt_tiles, *, cfg: RasterConfig,
 
 
 def bwd_pixel_map(tile_h: int, tile_w: int, device="cpu"):
-    """The tile pixel of each ``render_bwd`` thread, [BWD_THREADS, PPT]
+    """The tile pixel of each thread of ``render_fwd`` and ``render_bwd``
+    (one map, ``blend_common.cuh``'s ``patch_pixel``), [BWD_THREADS, PPT]
     int64 (``tile_h * tile_w`` where it has none): PPT = 1, 2 or 4 pixels a
     thread by the tile's size; lane l of warp w owns pixel (l % 8, l // 8)
     of each of its PPT 8x4 patches (a 2x2 block of patches with four pixels
     a thread and an even number of patches across and down, else the PPT
     consecutive patches w * PPT + k), or, where the tile does not divide
-    into 8x4 patches, the forward's map, pixel ``thread + k * 256``.  On the
-    CPU this mirror of ``render_bwd.cu``'s ``bwd_tile_pixel``; on a CUDA
-    device that function's own map (one launch of a kernel that runs only
-    it).  The checks hold each pixel of the tile owned exactly once."""
+    into 8x4 patches, pixel ``thread + k * 256``.  On the CPU this mirror of
+    ``patch_pixel``; on a CUDA device that function's own map (one launch
+    of a ``render_bwd.cu`` kernel that runs only it).  The checks hold each
+    pixel of the tile owned exactly once."""
     q = tile_h * tile_w
     if q > MAX_TILE_PX:
         raise ValueError(f"render_bwd takes tiles of at most {MAX_TILE_PX} "
@@ -624,9 +629,9 @@ def cull_extent(conic, opacity, alpha_min: float):
     ``cull_box``, in its float32 expressions: outside ``|dx| <= rx,
     |dy| <= ry`` a splat's alpha is below ``alpha_min`` at every pixel.
     ``-inf`` (an empty box) where the opacity is below ``alpha_min``,
-    ``inf`` where the conic is not positive definite.  ``render_jvp`` and
-    ``render_bwd`` skip the pairs outside the box; the tests hold this
-    mirror to the blend's own alpha."""
+    ``inf`` where the conic is not positive definite.  ``render_fwd``,
+    ``render_bwd`` and ``render_jvp`` skip the pairs outside the box; the
+    tests hold this mirror to the blend's own alpha."""
     f32 = lambda v: torch.tensor(v, dtype=torch.float32)
     one = f32(1.0)
     up, down, rel = one + f32(CULL_REL), one - f32(CULL_REL), f32(CULL_REL)

@@ -70,7 +70,8 @@ def assert_core_close(a, b):
                                atol=2e-5)
 
 
-@pytest.mark.parametrize("tile", [(8, 16), (8, 8), (16, 16), (32, 32)])
+@pytest.mark.parametrize("tile", [(8, 16), (8, 8), (16, 16), (32, 32),
+                                  (12, 20)])
 def test_render_fwd_matches_plain(dev, tile):
     args, ckw = core_inputs(tile, device=dev)
     before = render.launches["render_fwd"]
@@ -83,6 +84,54 @@ def test_render_fwd_matches_plain(dev, tile):
     again = render.core_fwd(*args, **ckw)
     for x, y in zip(k, again):
         assert torch.equal(x, y)
+
+
+def test_render_fwd_culls_pairs(dev):
+    """On 32x32 tiles of a scene whose pixels terminate and whose segments
+    run past 1,024 instances, the counter build tests at least one pair per
+    contribution and fewer pairs than the pixels' segments hold up to their
+    termination, and counting changes no output bit."""
+    args, ckw = core_inputs((32, 32), p=12000, device=dev)
+    table, start, stop, gt = args
+    n_tiles, q = gt.shape
+    outs = [(torch.empty((n_tiles, 9, q), device=dev),
+             torch.empty((n_tiles, 3, q), dtype=torch.int32, device=dev))
+            for _ in range(2)]
+    pairs = torch.zeros(1, dtype=torch.int64, device=dev)
+    render.launch_render_fwd(table, start, stop, gt, *outs[0], **ckw,
+                             pairs=pairs)
+    render.launch_render_fwd(table, start, stop, gt, *outs[1], **ckw)
+    torch.cuda.synchronize()
+    for x, y in zip(*outs):
+        assert torch.equal(x, y)
+    t_final, ncon, nval = outs[0][0][:, 7], outs[0][1][:, 0], outs[0][1][:, 1]
+    px_mask = render.pixel_coords(n_tiles, ckw["tiles_x"], 32, 32,
+                                  ckw["height"], ckw["width"], dev)[2]
+    seg = (stop - start).to(torch.int64)[:, None]
+    walked = torch.where(t_final >= 1e-2, seg,
+                         torch.minimum(ncon.to(torch.int64) + 1, seg))
+    walked = int(torch.where(px_mask, walked, torch.zeros_like(walked)).sum())
+    contribs = int(nval.to(torch.int64).sum())
+    assert 0 < contribs <= int(pairs) < walked
+
+
+@pytest.mark.parametrize("full", [False, True])
+@pytest.mark.parametrize("tile", [(16, 16), (32, 32), (12, 20)])
+def test_render_jvp_primal_equals_render_fwd(dev, tile, full):
+    """On the dense scene of the backward's tests (12,000 Gaussians, ~10%
+    of the pixels terminating), render_jvp's primal outputs equal
+    render_fwd's bit for bit: the two kernels cull differently but take the
+    same contributing pairs, in segment order, with the same expressions."""
+    args, ckw = core_inputs(tile, p=BWD_SCENES["dense"], device=dev)
+    g = torch.Generator().manual_seed(7)
+    tans = torch.randn(args[0].shape[0], (6 if full else 3) * 6,
+                       generator=g).to(dev)
+    out, _ = render.core_fwd_jvp(args[0], tans, *args[1:], **ckw, full=full)
+    fwd = render.core_fwd(*args, **ckw)
+    torch.cuda.synchronize()
+    assert float((fwd.t_final < 1e-2).float().mean()) > 0.01
+    for f in out._fields:
+        assert torch.equal(getattr(out, f), getattr(fwd, f)), f
 
 
 def test_render_fwd_rejects_bad_inputs(dev):
@@ -303,9 +352,10 @@ def test_render_bwd_stop_and_culling_change_no_row(dev, tile):
 @pytest.mark.parametrize("tile", [(32, 32), (16, 16), (8, 16), (24, 32),
                                   (16, 64), (12, 20), (30, 30)])
 def test_render_bwd_pixel_map_matches_mirror(dev, tile):
-    """The kernel's own pixel map (render_bwd.cu's bwd_tile_pixel) equals
-    render.bwd_pixel_map's CPU mirror, which test_torch_tile_scatter.py
-    holds to owning every tile pixel exactly once."""
+    """The kernels' own pixel map (blend_common.cuh's patch_pixel, which
+    render_fwd and render_bwd share) equals render.bwd_pixel_map's CPU
+    mirror, which test_torch_tile_scatter.py holds to owning every tile
+    pixel exactly once."""
     k = render.bwd_pixel_map(*tile, device=dev).cpu()
     assert torch.equal(k, render.bwd_pixel_map(*tile))
 

@@ -1,8 +1,9 @@
 """The port stands alone: no JAX, nothing of the JAX package.
 
 A subprocess with ``jax`` and ``diff_gaussian_rasterization_tpu`` blocked
-in ``sys.modules`` imports every module of the port and ``chip_smoke.py``;
-a scan of their sources finds no import of either.
+in ``sys.modules`` imports every module of the port and its root scripts
+(``chip_smoke.py``, ``ab_render_fwd.py``); a scan of their sources finds no
+import of either.
 """
 
 import ast
@@ -26,6 +27,7 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import ab_render_fwd
 assert not any(k == f or k.startswith(f + ".") for k in sys.modules
                for f in {forbidden!r} if sys.modules[k] is not None)
 print(len(names))
@@ -33,7 +35,8 @@ print(len(names))
 
 
 def port_sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "ab_render_fwd.py"]
 
 
 def test_port_imports_without_jax():

@@ -40,6 +40,37 @@ def cotangents(t, q, seed=0):
             [(t, 3, q), (t, q), (t, q), (t, q), (t, q), (t, q)]]
 
 
+def worst_row_element(got, want, fwd_jax, port, tkw, rtol, atol):
+    """Where the port's rows [I, 12] lie furthest outside ``atol + rtol
+    |want|`` of the JAX package's: the instance, column, both values and
+    the margin used, the tile whose segment holds the instance, and that
+    tile's ``n_contrib`` and ``n_valid`` from the JAX forward (whose totals
+    the rows were taken from) and from the port's plain forward on the same
+    table.  Rows that differ mean a pixel ended at another instance, or
+    counted another set of contributors, on the two sides."""
+    ratio = np.abs(got - want) / (atol + rtol * np.abs(want))
+    ratio = np.where(np.isnan(ratio), np.inf, ratio)
+    i, c = np.unravel_index(int(np.argmax(ratio)), ratio.shape)
+    start = port["tile_start"].numpy()
+    stop = port["tile_stop"].numpy()
+    tiles = np.nonzero((start <= i) & (i < stop))[0]
+    lines = [f"worst element: instance {i}, column {render.ROW_COLUMNS[c]}, "
+             f"port {got[i, c]!r} against JAX {want[i, c]!r}, "
+             f"|difference| / tolerance {ratio[i, c]!r}"]
+    if tiles.size == 0:
+        return "\n".join(lines + ["in no tile's segment"])
+    t = int(tiles[0])
+    lines.append(f"tile {t}, segment [{start[t]}, {stop[t]})")
+    port_fwd = render.core_fwd(**port, **tkw)
+    for name in ("n_contrib", "n_valid"):
+        a = np.array(getattr(fwd_jax, name))[t]
+        b = getattr(port_fwd, name)[t].numpy()
+        lines += [f"{name} of the JAX forward: {a.tolist()}",
+                  f"{name} of the port's forward: {b.tolist()}",
+                  f"pixels where they differ: {np.nonzero(a != b)[0].tolist()}"]
+    return "\n".join(lines)
+
+
 @pytest.mark.parametrize("tile,chunk,want", [
     ((8, 16), 8, (True, True)),
     ((8, 8), 16, (True, True)),
@@ -67,9 +98,14 @@ def test_reference_matches_core_bwd_xla(tile, chunk, want):
     want_rows = np.concatenate(
         [np.asarray(x).reshape(rows.shape[0], -1) for x in a], axis=1)
     assert rows.shape == (port["table"].shape[0], render.ROW)
-    for c, name in enumerate(render.ROW_COLUMNS):
-        np.testing.assert_allclose(rows[:, c].numpy(), want_rows[:, c],
-                                   rtol=1e-3, atol=2e-4, err_msg=name)
+    try:
+        for c, name in enumerate(render.ROW_COLUMNS):
+            np.testing.assert_allclose(rows[:, c].numpy(), want_rows[:, c],
+                                       rtol=1e-3, atol=2e-4, err_msg=name)
+    except AssertionError as e:
+        raise AssertionError(f"{e}\n" + worst_row_element(
+            rows.numpy(), want_rows, fwd, port, tkw, rtol=1e-3,
+            atol=2e-4)) from None
     assert float(rows[:, 5].abs().max()) > 0
     if not want_var:
         assert float(rows[:, 10].abs().max()) == 0.0
