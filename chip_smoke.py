@@ -69,11 +69,32 @@ the tracking benchmark's frame (``bench_tracking.py``: 100,000 Gaussians,
    with the pairs its culled walk tests), the whole forward, forward +
    backward, a mapping step, a dual render and a tracked frame, with CUDA
    events, and list the device time of the forward, of forward + backward
-   and of a tracked frame by kernel with torch.profiler.
+   and of a tracked frame by kernel with torch.profiler;
+5. the SLAM runner (``models/runner.py``): ``init_slam`` and two
+   ``slam_step``s on the card and on the CPU path on a small world where
+   tracking moves each pose (the same keyframes and active masks, poses
+   within 1e-4, costs within rtol 1e-3, the map's fields within
+   ``tests/test_torch_runner.py``'s Adam-step tolerance); then
+   ``run_slam`` at ``examples/bench_ate.py``'s record configuration
+   (240x320, the Replica-class room at wall resolution 56, sensor noise)
+   on the first 24 of its 120 frames (finite poses, ATE below
+   SLAM_ATE_MAX_CM and below half the no-tracking ATE, active Gaussians
+   left, no runner render over its budget, every kernel of the path
+   launched), timed by frame, tracked frame, mapping round and refinement
+   (CUDA events, read after the run); the path's kernels against their
+   plain versions at its own shapes (8x16 tiles, chunk 32, the run's
+   instance budget): ``render_fwd``, ``render_bwd``, ``tile_scatter_sum``
+   and ``segment_sum_rows`` (F = 12 and 2) on each keyframe of the last
+   mapping window, ``render_jvp`` on the last frame's dual render at both
+   pyramid levels; and three more frames, one a keyframe with its mapping
+   round, profiled for launches, device busy time and idle share a frame,
+   and three more for the host's synchronizing calls a frame (CUDA sync
+   debug mode).
 
-Prints the card's name and power limit, a ``kernels`` JSON line, and last
-the line ``{"ok": true, "device": {...}}``.  Exits non-zero, without that
-line, when there is no CUDA device or any phase fails.
+Prints the card's name and power limit, a ``kernels`` JSON line, a
+``slam`` JSON line, and last the line ``{"ok": true, "device": {...}}``.
+Exits non-zero, without that line, when there is no CUDA device or any
+phase fails.
 """
 
 import json
@@ -197,9 +218,11 @@ def _dev_us(e):
 
 def _device_events(prof):
     """The profile's device-side events (kernels, copies, fills): the
-    operator-level ones repeat their time."""
+    operator-level ones repeat their time, and so do the device ranges of
+    ``record_function`` annotations (``Optimizer.step#Adam.step``)."""
     return [e for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA") and _dev_us(e) > 0]
+            if str(e.device_type).endswith("CUDA") and _dev_us(e) > 0
+            and not getattr(e, "is_user_annotation", False)]
 
 
 def compare_core(k, p, tol_rtol=1e-4, tol_atol=2e-5):
@@ -1106,6 +1129,414 @@ def tracking_times(st, dev, card):
     return entries
 
 
+# The SLAM phase: the small world of the card-vs-CPU check
+# (tests/test_torch_slam_e2e.py::test_run_slam_tracks_orbit's room, orbit
+# and tracking iterations, cut to 24x32 and 3 frames and to fewer mapping
+# steps for the CPU path's time), and the record configuration's run, cut
+# in depth from 120 frames to SLAM_FRAMES.
+SLAM_SMALL = dict(h=24, w=32, n=768, seed=0, orbit=9, frames=3,
+                  track_iters=10, map_iters=5, init_iters=20)
+SLAM_FRAMES = 24
+SLAM_POSE_ATOL = 1e-4   # tests/test_torch_tracking.py's pose tolerance
+SLAM_COST_RTOL = 1e-3   # tests/test_torch_runner.py's loss tolerance
+# tests/test_torch_runner.py::assert_models: every float field within
+# SLAM_FIELD_ATOL + (Adam steps) x lr / 10, rtol 1e-5
+SLAM_FIELD_ATOL = 1e-5
+# the 24-frame run's unaligned ATE was 0.808 cm on the H100; a wrong kernel
+# at the run's shapes moves it by far more than the rounding of a change
+SLAM_ATE_MAX_CM = 2.0
+# the CUDA functions of the port's kernels, as the profiler names them
+SLAM_KERNEL_FNS = ("render_fwd_kernel", "tile_scatter_sum_kernel",
+                   "segment_sum_kernel", "render_bwd_kernel",
+                   "segment_sum_rows_kernel", "segment_sum_rows_any_kernel",
+                   "render_jvp_kernel")
+
+
+class _Recorder:
+    """Wraps the runner's ``render_model``, ``track_frame``,
+    ``mapping_round`` and ``refine_keyframes`` for one block, adding no
+    wait on the card: the overflow flag (a device tensor) of every render
+    the runner makes itself, and a pair of CUDA events around every tracked
+    frame (the refinement's re-tracks apart), mapping round and refinement.
+    The runner waits on the card within each frame, so an event pair spans
+    the stage's host time too.  Read the flags and times after the
+    block."""
+
+    def __init__(self, runner):
+        self.runner, self.saved = runner, {}
+        self.flags, self.events = [], {}
+        self.refining = False
+
+    def _timed(self, name, key):
+        import torch
+        fn = self.saved[name]
+
+        def wrapped(*a, **k):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            out = fn(*a, **k)
+            t1.record()
+            self.events.setdefault(key(), []).append((t0, t1))
+            return out
+        return wrapped
+
+    def __enter__(self):
+        r = self.runner
+        names = ("render_model", "track_frame", "mapping_round",
+                 "refine_keyframes")
+        self.saved = {n: getattr(r, n) for n in names}
+
+        def render(*a, **k):
+            out = self.saved["render_model"](*a, **k)
+            self.flags.append(out.overflow)
+            return out
+
+        refine = self._timed("refine_keyframes", lambda: "refine")
+
+        def refine_flagged(*a, **k):
+            self.refining = True
+            try:
+                return refine(*a, **k)
+            finally:
+                self.refining = False
+        r.render_model = render
+        r.track_frame = self._timed(
+            "track_frame", lambda: "retrack" if self.refining else "track")
+        r.mapping_round = self._timed("mapping_round", lambda: "map")
+        r.refine_keyframes = refine_flagged
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            setattr(self.runner, k, v)
+
+    def ms(self, key):
+        """The milliseconds of each call of one stage (after a sync)."""
+        return [a.elapsed_time(b) for a, b in self.events.get(key, [])]
+
+    def overflowed(self):
+        """How many of the recorded renders overflowed their budget."""
+        import torch
+        return int(torch.stack([torch.as_tensor(f).reshape(())
+                                for f in self.flags]).sum())
+
+
+def slam_small(dev, check):
+    """Phase 5a: ``init_slam`` and two ``slam_step``s on the card and on the
+    CPU path, on the same small world (rendered on the CPU, its frames
+    moved to the card): the same keyframes and active masks, each pose
+    moved by tracking and within SLAM_POSE_ATOL of the CPU path's, the
+    costs within SLAM_COST_RTOL and the map's fields within
+    ``tests/test_torch_runner.py``'s Adam-step tolerance."""
+    import torch
+    from diff_gaussian_rasterization_tpu_torch.camera import Camera
+    from diff_gaussian_rasterization_tpu_torch.config import RasterConfig
+    from diff_gaussian_rasterization_tpu_torch.io.synthetic import (
+        orbit_trajectory, random_room_model, render_sequence)
+    from diff_gaussian_rasterization_tpu_torch.models import runner
+    from diff_gaussian_rasterization_tpu_torch.models.gaussians import (
+        PARAM_FIELDS)
+    from diff_gaussian_rasterization_tpu_torch.models.slam import (
+        Frame, MappingConfig, TrackingConfig)
+    sw = SLAM_SMALL
+    cfg = RasterConfig(tile_h=8, tile_w=8, chunk=16, instance_multiplier=12)
+    mcfg = MappingConfig(iters=sw["map_iters"])
+    scfg = runner.SLAMConfig(
+        raster=cfg, tracking=TrackingConfig(iters=sw["track_iters"],
+                                            sil_threshold=0.5),
+        mapping=mcfg, capacity=4096, keyframe_every=2, map_every=2,
+        window=2, seed_every_px=2, init_iters=sw["init_iters"],
+        motion_model=False)
+    cam = lambda d: Camera(viewmatrix=torch.eye(4, device=d), tanfovx=0.7,
+                           tanfovy=0.55, height=sw["h"], width=sw["w"])
+    gt = random_room_model(capacity=sw["n"], n=sw["n"], seed=sw["seed"],
+                           device="cpu")
+    views = orbit_trajectory(sw["orbit"], device="cpu")[:sw["frames"]]
+    frames = render_sequence(gt, views, cam("cpu"), cfg)
+    runs = {}
+    for name, d in (("cpu", "cpu"), ("card", dev)):
+        fr = [Frame(f.rgb.to(d), f.depth.to(d)) for f in frames]
+        st = runner.init_slam(views[0].to(d), fr[0], cam(d), scfg)
+        active, costs, moved = [st.model.active.cpu().clone()], [], []
+        for i in range(1, sw["frames"]):
+            start = st.est_views[-1].cpu().clone()
+            st, c = runner.slam_step(st, fr[i], cam(d), scfg, i)
+            moved.append(float((st.est_views[-1].cpu() - start).abs().max()))
+            active.append(st.model.active.cpu().clone())
+            costs.append(c)
+        runs[name] = (st, active, costs, moved)
+    (sc, ac, cc, mc), (sg, ag, cg, mg) = runs["cpu"], runs["card"]
+    err = max(float((a.cpu() - b).abs().max())
+              for a, b in zip(sg.est_views, sc.est_views))
+    # Adam steps: the bootstrap's, then a round at each mapped frame
+    steps = sw["init_iters"] + mcfg.iters * (len(sg.kf_idx) - 1)
+    lrs = dict(means3D=mcfg.lr_means, scales_log=mcfg.lr_scales,
+               rotations=mcfg.lr_rotations, opacities_logit=mcfg.lr_opacities,
+               sh=mcfg.lr_sh)
+    fields_ok, field_err = True, {}
+    for f in PARAM_FIELDS:
+        a = getattr(sg.model, f).detach().cpu()
+        b = getattr(sc.model, f).detach()
+        atol = SLAM_FIELD_ATOL + steps * lrs[f] / 10
+        field_err[f] = float((a - b).abs().max())
+        fields_ok &= bool(torch.allclose(a, b, rtol=1e-5, atol=atol))
+    finite = all(bool(torch.isfinite(v).all()) for v in sg.est_views) \
+        and all(bool(torch.isfinite(getattr(sg.model, f)).all())
+                for f in PARAM_FIELDS) \
+        and all(np.isfinite(cg))
+    log(f"[slam] small world {sw}: keyframes card {sg.kf_idx}, CPU "
+        f"{sc.kf_idx}; active card {[int(a.sum()) for a in ag]}, CPU "
+        f"{[int(a.sum()) for a in ac]}; costs card {cg}, CPU {cc}; poses "
+        f"moved by tracking card {mg}, CPU {mc}; largest pose difference "
+        f"{err}; largest field differences after {steps} Adam steps "
+        f"{json.dumps(field_err)}")
+    check(sg.kf_idx == sc.kf_idx
+          and all(torch.equal(a, b) for a, b in zip(ag, ac)),
+          "slam: the card and the CPU path take the same keyframes and keep "
+          "the same active masks on the small world")
+    check(min(mg) > 10 * SLAM_POSE_ATOL,
+          f"slam: tracking moves each pose on the card by more than "
+          f"{10 * SLAM_POSE_ATOL}")
+    check(err <= SLAM_POSE_ATOL,
+          f"slam: the card's poses within {SLAM_POSE_ATOL} of the CPU "
+          "path's on the small world")
+    check(np.allclose(cg, cc, rtol=SLAM_COST_RTOL, atol=0),
+          f"slam: the card's tracking costs within rtol {SLAM_COST_RTOL} of "
+          "the CPU path's")
+    check(fields_ok, f"slam: the card's map within atol {SLAM_FIELD_ATOL} + "
+                     f"{steps} x lr / 10, rtol 1e-5, of the CPU path's")
+    check(finite, "slam: finite poses, map and costs on the card")
+
+
+def slam_kernels(state, scfg, cam_t, frame, check):
+    """The path's kernels against their plain versions at the record run's
+    own shapes, on its final map at ``state.raster`` (8x16 tiles, chunk 32,
+    the run's instance budget): ``render_fwd``, ``render_bwd``,
+    ``tile_scatter_sum`` and ``segment_sum_rows`` (F = 12 and 2) on each
+    keyframe of the last mapping window, as ``map_step`` renders it; and
+    ``render_jvp`` on the dual render of ``frame`` at the last estimated
+    pose, at each pyramid level tracking runs.  Returns the largest errors
+    by kernel."""
+    import torch
+    from diff_gaussian_rasterization_tpu_torch.models import runner
+    from diff_gaussian_rasterization_tpu_torch.models.slam import (
+        downsample_frame)
+    from diff_gaussian_rasterization_tpu_torch.ops import rasterize as ras
+    rcfg, model = state.raster, state.model
+    means = model.means3D.detach()
+    with torch.no_grad():
+        kwm = {k: (v.detach() if torch.is_tensor(v) else v)
+               for k, v in model.raster_kwargs().items()}
+    errs = dict(err_fwd=0.0, err_bwd=0.0, err_rows=0.0, err_u=0.0,
+                err_ts=0.0, err_jvp=0.0)
+    window = runner._select_window(state, scfg, state.kf_idx[-1])
+    h, w = cam_t.height, cam_t.width
+    core_kw = dict(cfg=rcfg, tiles_x=-(-w // rcfg.tile_w), height=h, width=w)
+    with torch.no_grad():
+        for j, i in enumerate(window):
+            cam = cam_t.replace(viewmatrix=state.kf_views[i])
+            _, binn, feat, gt_tiles = ras.prepare(
+                means, cam, rcfg, rcfg.max_instances,
+                state.kf_frames[i].depth, **kwm)
+            log(f"[slam] keyframe {state.kf_idx[i]}: "
+                f"{int(binn.num_rendered)} instances of a budget of "
+                f"{rcfg.max_instances}, {gt_tiles.shape[0]} tiles of "
+                f"{rcfg.tile_h}x{rcfg.tile_w}")
+            res = check_render_kernels(
+                f"slam keyframe {state.kf_idx[i]}",
+                feat[binn.gauss_id].contiguous(), binn, gt_tiles, core_kw,
+                check, seed=j)
+            for k in ("err_fwd", "err_bwd", "err_rows", "err_u", "err_ts"):
+                errs[k] = max(errs[k], res[k])
+        view = state.est_views[-1]
+        tw = twist_basis(view)
+        levels = [2 ** lvl for lvl in range(scfg.tracking.pyramid - 1, 0, -1)
+                  if not (h % 2 ** lvl or w % 2 ** lvl)] + [1]
+        for s in levels:
+            fl = frame if s == 1 else downsample_frame(frame, s)
+            cam = cam_t.replace(viewmatrix=view, height=h // s, width=w // s)
+            _, binn, table, tans, gt_tiles = ras.pose_jvp_tables(
+                means, cam, rcfg, tw, None, fl.depth, **kwm)
+            kw = dict(core_kw, tiles_x=-(-(w // s) // rcfg.tile_w),
+                      height=h // s, width=w // s)
+            res = check_jvp_kernel(
+                f"slam tracking {w // s}x{h // s}", table, tans, binn,
+                gt_tiles, kw, bool(rcfg.pose_cov2d_branch), check)
+            errs["err_jvp"] = max(errs["err_jvp"], res["err"])
+    return errs
+
+
+def slam_host_syncs(runner, state, frames, cam_t, scfg, first_idx):
+    """The host's waits on the card in ``len(frames)`` SLAM frames: every
+    synchronizing CUDA call warns in the sync debug mode.  Returns the
+    count a frame and the ten busiest call sites (file:line, count a
+    frame)."""
+    import warnings
+    from collections import Counter
+
+    import torch
+    sites = Counter()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for k, f in enumerate(frames):
+                state, _ = runner.slam_step(state, f, cam_t, scfg,
+                                            first_idx + k)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            sites[f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}"] += 1
+    n = len(frames)
+    return (sum(sites.values()) / n,
+            {k: v / n for k, v in sites.most_common(10)})
+
+
+def slam_record(dev, check, card):
+    """Phase 5b: ``run_slam`` at ``examples/bench_ate.py``'s record
+    configuration (240x320, ``replica_like_model(seed=0, wall_res=56)``,
+    ``walkthrough_trajectory(120, seed=1)``, sensor noise), on its first
+    SLAM_FRAMES frames, with every launch counted; then three more frames
+    (one keyframe with its mapping round) profiled for launches and device
+    time per frame, and three more counted for the host's waits on the
+    card.  Returns the largest errors of ``slam_kernels`` and the ``slam``
+    line's object."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from diff_gaussian_rasterization_tpu_torch.examples import bench_ate
+    from diff_gaussian_rasterization_tpu_torch.io.replica import (
+        ate_rmse, ate_rmse_aligned)
+    from diff_gaussian_rasterization_tpu_torch.models import runner
+    from diff_gaussian_rasterization_tpu_torch.ops.kernels import render
+    args = bench_ate.parse_args([])
+    scfg = bench_ate.slam_config(args)
+    n_all = SLAM_FRAMES + 7
+    t0 = time.time()
+    gt_model, views, frames, cam_t = bench_ate.scene(args, dev)
+    views, frames = views[:n_all], frames[:n_all]
+    torch.cuda.synchronize()
+    log(f"[slam] record scene: {int(gt_model.num_active)} Gaussians, "
+        f"{args.frames} frames rendered at {cam_t.width}x{cam_t.height} in "
+        f"{time.time() - t0:.1f} s; SLAM on the first {SLAM_FRAMES}")
+    data = list(zip(views.cpu().numpy(), frames))
+    log(f"[slam] record scene ready at +{time.time() - t0:.1f} s")
+    render.reset_launches()
+    with _Recorder(runner) as rec:
+        t1 = time.perf_counter()
+        state, gt_views = runner.run_slam(data[:SLAM_FRAMES], scfg, cam_t)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    counts = dict(render.launches)
+    track_ms, map_ms = rec.ms("track"), rec.ms("map")
+    refine_ms, n_retracks = rec.ms("refine"), len(rec.ms("retrack"))
+    n_over = rec.overflowed()
+    gtv = [np.asarray(v) for v in gt_views]
+    ate = ate_rmse(state.est_views, gtv)
+    ate_al = ate_rmse_aligned(state.est_views, gtv)
+    ate_static = ate_rmse([gtv[0]] * len(gtv), gtv)
+    finite = all(bool(torch.isfinite(v).all()) for v in state.est_views)
+    n_active, n_kf = int(state.model.num_active), len(state.kf_idx)
+    log(f"[slam] {SLAM_FRAMES} frames: ATE {100 * ate:.3f} cm unaligned, "
+        f"{100 * ate_al:.3f} cm aligned, no tracking "
+        f"{100 * ate_static:.3f} cm; keyframes {state.kf_idx}; active "
+        f"{n_active}; budget {state.raster.max_instances}; wall {wall:.2f} "
+        f"s; launches {counts}; tracked frames {len(track_ms)} "
+        f"({np.mean(track_ms):.1f} ms each), mapping rounds "
+        f"{len(map_ms)} ({[round(m, 1) for m in map_ms]} ms, the "
+        f"first the bootstrap), refinements {len(refine_ms)} "
+        f"({[round(m, 1) for m in refine_ms]} ms, with {n_retracks} "
+        f"re-tracks)")
+    check(finite and len(state.est_views) == SLAM_FRAMES,
+          f"slam record: {SLAM_FRAMES} finite poses")
+    check(100 * ate < SLAM_ATE_MAX_CM and ate < 0.5 * ate_static,
+          f"slam record: ATE below {SLAM_ATE_MAX_CM} cm and below half the "
+          "no-tracking ATE")
+    check(n_active > 0, "slam record: the map keeps active Gaussians")
+    check(rec.flags and n_over == 0,
+          f"slam record: none of the runner's {len(rec.flags)} coverage "
+          "and keyframe renders overflowed its instance budget")
+    check(all(counts[k] > 0 for k in ("render_fwd", "render_bwd",
+                                      "tile_scatter_sum", "segment_sum_rows",
+                                      "render_jvp"))
+          and counts["segment_sum"] == 0,
+          "slam record: the run launched render_fwd, render_bwd, "
+          "tile_scatter_sum, segment_sum_rows and render_jvp, and no "
+          "segment_sum")
+    errs = slam_kernels(state, scfg, cam_t, frames[SLAM_FRAMES - 1], check)
+    # frame SLAM_FRAMES unprofiled, then three frames, the last a keyframe
+    # with its mapping round
+    i0 = SLAM_FRAMES
+    dev_frames = [runner._on_device(f, dev) for f in frames[i0:i0 + 7]]
+    t4 = time.perf_counter()
+    state, _ = runner.slam_step(state, dev_frames[0], cam_t, scfg, i0)
+    torch.cuda.synchronize()
+    log(f"[slam] frame {i0} (keyframe, round and refinement) took "
+        f"{time.perf_counter() - t4:.1f} s")
+    render.reset_launches()
+    # device activity only: with the host's operator events the profile of
+    # three SLAM frames holds hundreds of thousands of events, and reading
+    # it back takes minutes
+    t3 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t2 = time.perf_counter()
+        for k in range(1, 4):
+            state, _ = runner.slam_step(state, dev_frames[k], cam_t, scfg,
+                                        i0 + k)
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t2) * 1e3
+    per_frame = {k: v / 3 for k, v in render.launches.items()}
+    rows = sorted(_device_events(prof), key=_dev_us, reverse=True)
+    log(f"[slam] the three profiled frames took {prof_wall / 1e3:.1f} s, "
+        f"the profile {time.perf_counter() - t3:.1f} s with its read-back")
+    busy = sum(_dev_us(e) for e in rows) / 1e3
+    # the port's kernels' device time a frame, by kernel function
+    kernel_ms = {}
+    for e in rows:
+        name = next((k for k in SLAM_KERNEL_FNS if k in e.key), None)
+        if name is not None:
+            kernel_ms[name] = kernel_ms.get(name, 0.0) + _dev_us(e) / 3e3
+    log(f"[profile] {card}: SLAM frames {i0 + 1}-{i0 + 3} (the last "
+        f"keyframes {state.kf_idx[-2:]}, each with its mapping round): "
+        f"{prof_wall / 3:.3f} ms a frame on the host "
+        f"clock under the profiler, device busy {busy / 3:.3f} ms a frame "
+        f"(idle share {1 - busy / prof_wall:.3f}); launches a frame "
+        f"{json.dumps(per_frame)}, segment_sum_rows by row width over the "
+        f"three {dict(render.row_launches)}; the port's kernels' device "
+        f"time a frame {json.dumps(kernel_ms)} ms; device time by kernel a "
+        f"frame:")
+    for e in rows[:12]:
+        log(f"[profile]   {_dev_us(e) / 1e3 / 3:9.4f} ms  "
+            f"x{e.count / 3:<6.1f} {e.key[:90]}")
+    syncs, sites = slam_host_syncs(runner, state, dev_frames[4:], cam_t,
+                                   scfg, i0 + 4)
+    log(f"[slam] host syncs a frame over frames {i0 + 4}-{i0 + 6} (the last "
+        f"a keyframe with its round): {syncs:.1f}; by call site: "
+        f"{json.dumps(sites)}")
+    n_rounds = len(map_ms)
+    return errs, dict(
+        frames=SLAM_FRAMES, of_frames=args.frames,
+        res=f"{cam_t.width}x{cam_t.height}",
+        ate_cm=100 * ate, ate_aligned_cm=100 * ate_al,
+        ate_no_tracking_cm=100 * ate_static,
+        keyframes=n_kf, active=n_active, wall_s=wall,
+        fps=SLAM_FRAMES / wall,
+        ms_per_tracked_frame=float(np.mean(track_ms)),
+        tracked_frames=len(track_ms),
+        ms_per_mapping_round=float(np.mean(map_ms[1:]))
+        if n_rounds > 1 else None,
+        ms_bootstrap_mapping=map_ms[0] if map_ms else None,
+        mapping_rounds=max(n_rounds - 1, 0),
+        ms_per_refinement=float(np.mean(refine_ms))
+        if refine_ms else None, refinements=len(refine_ms),
+        launches_per_frame=per_frame, kernel_ms_per_frame=kernel_ms,
+        host_syncs_per_frame=syncs,
+        busy_ms_per_frame=busy / 3,
+        idle_share=1 - busy / prof_wall, card=card)
+
+
 def main():
     import torch
 
@@ -1137,6 +1568,7 @@ def main():
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     failures = []
+    t_main = time.time()
 
     def check(cond, what):
         log(("ok   " if cond else "FAIL ") + what)
@@ -1144,6 +1576,7 @@ def main():
             failures.append(what)
 
     # ---- 1. build ------------------------------------------------------
+    log(f"[phase] 1 starts at +{time.time() - t_main:.1f} s")
     t0 = time.time()
     logs = _build.build_all()
     log(f"[build] {len(logs)} source(s) in {time.time() - t0:.1f} s")
@@ -1152,6 +1585,7 @@ def main():
             log(f"[build] {name}: {line}")
 
     # ---- 2. kernels against their plain versions -----------------------
+    log(f"[phase] 2 starts at +{time.time() - t_main:.1f} s")
     cfg = RasterConfig(tile_h=32, tile_w=32)
     means, kw = bench_scene(device=dev)
     cam = bench_camera(device=dev)
@@ -1203,6 +1637,7 @@ def main():
     trk = tracking_kernels(dev, check)
 
     # ---- 3. the main path ----------------------------------------------
+    log(f"[phase] 3 starts at +{time.time() - t_main:.1f} s")
     model = random_model(seed=0, sh_degree=3, device=dev)
     views = [orbit_view(a, device=dev) for a in (0.0, 4.0, -4.0, 8.0)]
     renders = 0
@@ -1389,6 +1824,7 @@ def main():
     tracking_path(trk, dev, check)
 
     # ---- 4. times ------------------------------------------------------
+    log(f"[phase] 4 starts at +{time.time() - t_main:.1f} s")
     render_kw = dict(max_instances=max_inst, **kw)
     fwd_t = {"100k": render_fwd_times("100k", bench, core_kw, card),
              "500k": render_fwd_times("500k", mapped, core_kw, card,
@@ -1479,10 +1915,20 @@ def main():
 
     jvp_entries = tracking_times(trk, dev, card)
 
-    # the largest errors over both scales' comparisons
+    # ---- 5. the SLAM runner --------------------------------------------
+    log(f"[phase] 5 starts at +{time.time() - t_main:.1f} s")
+    slam_small(dev, check)
+    log(f"[phase] 5b starts at +{time.time() - t_main:.1f} s")
+    slam_errs, slam = slam_record(dev, check, card)
+
+    # the largest errors over both scales' comparisons and the SLAM run's
     err_fwd, err_bwd, err_rows, err_u, err_ts = (
-        max(bench[k], mapped[k])
+        max(bench[k], mapped[k], slam_errs[k])
         for k in ("err_fwd", "err_bwd", "err_rows", "err_u", "err_ts"))
+    # the SLAM run tracks with the light variant
+    for e in jvp_entries:
+        if e["name"] == "render_jvp":
+            e["max_abs_err"] = max(e["max_abs_err"], slam_errs["err_jvp"])
     kernels = [dict(name=name, route="cuda",
                     source="diff_gaussian_rasterization_tpu_torch/ops/"
                            "kernels/csrc/render_fwd.cu",
@@ -1540,7 +1986,9 @@ def main():
               err_rows),
              ("segment_sum_rows_f2", "f2", rows_fwd.get(2, 0), err_u))
          ] + jvp_entries
+    log(f"[phase] done at +{time.time() - t_main:.1f} s")
     log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"slam": slam}))
     if failures:
         log(f"FAILED: {failures}")
         return 1

@@ -61,6 +61,12 @@ class Camera:
     znear: float = 0.01
     zfar: float = 100.0
 
+    @classmethod
+    def from_intrinsics(cls, viewmatrix, fx, fy, height, width, **kw):
+        return cls(viewmatrix=viewmatrix, tanfovx=width / (2.0 * fx),
+                   tanfovy=height / (2.0 * fy), height=height, width=width,
+                   **kw)
+
     def replace(self, **kw) -> "Camera":
         return dataclasses.replace(self, **kw)
 

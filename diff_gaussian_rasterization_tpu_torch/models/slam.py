@@ -13,8 +13,9 @@ Python loop whose accept/reject decisions stay on the device
 Mapping (CG-SLAM's mapping step) is Adam on the Gaussian parameters over a
 window of keyframes, each rendered with ``track_off=True``, with one
 parameter group per field.  The optimizers are PyTorch's and carry their
-own state, in place of the JAX version's optax state.  Densify/prune,
-``mapping_round`` and the meshed (multi-device) paths are not ported yet.
+own state, in place of the JAX version's optax state.  ``mapping_round``
+runs a window's steps with densify and uncertainty pruning.  The meshed
+(multi-device) paths are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,7 +31,8 @@ from ..config import RasterConfig
 from ..ops.binning import default_max_instances
 from ..ops.rasterize import bin_for_view, rasterize, rasterize_with_pose_jvp
 from . import lie
-from .gaussians import PARAM_FIELDS, DensifyState, GaussianModel
+from .gaussians import (PARAM_FIELDS, DensifyState, GaussianModel,
+                        densify_and_prune, prune_by_uncertainty, split_noise)
 
 GEOMETRY_FIELDS = ("means3D", "scales_log", "rotations")
 
@@ -134,6 +136,11 @@ def _lm_solve(h, g, lam):
     eye = torch.eye(6, dtype=h.dtype, device=h.device)
     a = h + lam * torch.diag(torch.diag(h)) + 1e-9 * eye
     return torch.linalg.solve_ex(a, -g)[0]
+
+
+def _stacked(costs, tr):
+    """The per-iteration costs as one tensor (empty for 0 iterations)."""
+    return torch.stack(costs) if costs else tr.zero.new_zeros(0)
 
 
 def _lm_damping(accept, lam):
@@ -245,7 +252,7 @@ def _track_gn(tr: _Tracker, binnings=None):
         final = cost_at(xi)
         better = final < best_cost
         return (torch.where(better, xi, best_xi),
-                torch.where(better, final, best_cost), torch.stack(costs))
+                torch.where(better, final, best_cost), _stacked(costs, tr))
 
     # deferred accept: anchor = last accepted point, dx = pending trial
     # step; a rejected trial keeps the anchor and retries half the step
@@ -265,7 +272,7 @@ def _track_gn(tr: _Tracker, binnings=None):
         anchor = torch.where(accept, xi_try, anchor)
         cost_anchor = torch.where(accept, cost, cost_anchor)
         costs.append(cost)
-    return best_xi, best_cost, torch.stack(costs)
+    return best_xi, best_cost, _stacked(costs, tr)
 
 
 def _track_gn_fd(tr: _Tracker, binnings=None):
@@ -310,7 +317,7 @@ def _track_gn_fd(tr: _Tracker, binnings=None):
     final = _huber_cost(base_eval(xi)[0], tcfg.huber)[0]
     better = final < best_cost
     return (torch.where(better, xi, best_xi),
-            torch.where(better, final, best_cost), torch.stack(costs))
+            torch.where(better, final, best_cost), _stacked(costs, tr))
 
 
 def _track_adam(tr: _Tracker, binnings=None):
@@ -342,7 +349,7 @@ def _track_adam(tr: _Tracker, binnings=None):
         final = loss_at(xi.detach())
     better = final < best_loss
     return (torch.where(better, xi.detach(), best_xi),
-            torch.where(better, final, best_loss), torch.stack(losses))
+            torch.where(better, final, best_loss), _stacked(losses, tr))
 
 
 def downsample_frame(frame: Frame, s: int) -> Frame:
@@ -399,10 +406,9 @@ def track_frame(model: GaussianModel, view0, frame: Frame,
 
 @dataclasses.dataclass(frozen=True)
 class MappingConfig:
-    """The fields of the JAX package's ``MappingConfig`` that ``map_step``
-    and ``make_map_optimizer`` read (the iteration count and the densify
-    and prune thresholds belong to ``mapping_round`` and densify)."""
+    """The JAX package's ``MappingConfig``, field for field."""
 
+    iters: int = 40
     lr_means: float = 1e-4
     lr_scales: float = 5e-3
     lr_rotations: float = 1e-3
@@ -410,6 +416,8 @@ class MappingConfig:
     lr_sh: float = 2.5e-3
     w_color: float = 1.0
     w_depth: float = 0.5
+    densify_grad_threshold: float = 2e-4
+    uncertainty_prune: float = 0.0  # 0 disables
     # Exponential decay of the geometry learning rates (means, scales,
     # rotations): x lr_decay every lr_decay_steps map steps, continuously,
     # floored at lr_decay_floor of the initial rate.  1.0 = off.
@@ -509,3 +517,45 @@ def map_step(model: GaussianModel, opt: MapOptimizer, dstate: DensifyState,
     # densification statistics: the screen-space (NDC) position gradient
     dstate = dstate.update(means2d.grad, visible=vis)
     return loss.detach(), dstate, (gau_u, gau_np)
+
+
+def mapping_round(model: GaussianModel, opt: MapOptimizer,
+                  dstate: DensifyState, keyframes, cfg: RasterConfig,
+                  mcfg: MappingConfig, cam_t: Camera, generator=None,
+                  densify_every: int = 0, mesh=None, kf_axis="kf",
+                  tile_axis="tile", map_axis=None, map_budget: int = 0):
+    """``mcfg.iters`` map steps over one keyframe window, ``keyframes`` =
+    (views [K, 4, 4], rgbs [K, 3, H, W], depths [K, H, W]).
+
+    Every ``densify_every`` steps (0 = never) it densifies; the split
+    noise is drawn once a round from ``generator`` (as the JAX version
+    reuses its key within a round).  With ``mcfg.uncertainty_prune > 0``
+    the last step's window-summed statistics prune by uncertainty at the
+    end.  The model and ``opt`` are updated in place; returns
+    ``(dstate, loss)`` with the last step's loss (None when ``iters`` is
+    0).
+    """
+    if mesh is not None or map_axis is not None:
+        raise NotImplementedError(
+            "meshed mapping (keyframe, tile or map sharding) is not ported: "
+            "mapping_round runs on one device")
+    views, rgbs, depths = keyframes
+    n = views.shape[0]
+    wts = torch.ones(n, dtype=views.dtype, device=views.device)
+    loss = stats = noise = None
+    for it in range(mcfg.iters):
+        loss, dstate, stats = map_step(
+            model, opt, dstate, views, rgbs, depths, wts, cfg, mcfg,
+            cam_t.height, cam_t.width, cam_t.tanfovx, cam_t.tanfovy, n)
+        if densify_every and (it + 1) % densify_every == 0:
+            if noise is None:
+                noise = split_noise(generator, model.capacity // 8,
+                                    model.means3D.dtype,
+                                    model.means3D.device)
+            dstate, _ = densify_and_prune(
+                model, dstate, grad_threshold=mcfg.densify_grad_threshold,
+                noise=noise)
+    if mcfg.uncertainty_prune > 0 and stats is not None:
+        prune_by_uncertainty(model, stats[0], stats[1],
+                             mcfg.uncertainty_prune)
+    return dstate, loss

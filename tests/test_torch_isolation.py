@@ -1,9 +1,9 @@
 """The port stands alone: no JAX, nothing of the JAX package.
 
 A subprocess with ``jax`` and ``diff_gaussian_rasterization_tpu`` blocked
-in ``sys.modules`` imports every module of the port and its root scripts
-(``chip_smoke.py``, ``ab_render_fwd.py``); a scan of their sources finds no
-import of either.
+in ``sys.modules`` imports every module of the port (its ``examples`` too)
+and its root scripts (``chip_smoke.py``, ``ab_render_fwd.py``), and builds
+nothing while it does; a scan of their sources finds no import of either.
 """
 
 import ast
@@ -30,6 +30,11 @@ import chip_smoke
 import ab_render_fwd
 assert not any(k == f or k.startswith(f + ".") for k in sys.modules
                for f in {forbidden!r} if sys.modules[k] is not None)
+# importing builds nothing: no CUDA library loaded, no native solver built
+from diff_gaussian_rasterization_tpu_torch import native
+from diff_gaussian_rasterization_tpu_torch.ops.kernels import _build
+assert not _build._libs and native._posegraph_fn.cache_info().currsize == 0
+assert "diff_gaussian_rasterization_tpu_torch.examples.bench_ate" in names
 print(len(names))
 """
 
