@@ -43,10 +43,11 @@ class Frame(NamedTuple):
 
 
 def render_model(model: GaussianModel, camera: Camera, cfg: RasterConfig,
-                 gt_depth=None, means2D=None, **kw):
-    """Render a :class:`GaussianModel` from ``camera``."""
+                 gt_depth=None, means2D=None, sh_degree: int = None, **kw):
+    """Render a :class:`GaussianModel` from ``camera``; ``sh_degree`` caps
+    the SH degree (default: all the model's bands)."""
     return rasterize(model.means3D, camera, cfg, gt_depth=gt_depth,
-                     means2D=means2D, **model.raster_kwargs(), **kw)
+                     means2D=means2D, **model.raster_kwargs(sh_degree), **kw)
 
 
 def rgbd_loss(out, frame: Frame, w_color: float = 1.0, w_depth: float = 0.5,

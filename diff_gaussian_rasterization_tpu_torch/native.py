@@ -1,11 +1,17 @@
-"""ctypes binding of the native pose-graph solver (PyTorch port of the JAX
-package's ``native.py``, ``pose_graph_optimize`` only).
+"""ctypes bindings of the native (C++) runtime components (PyTorch port of
+the JAX package's ``native.py``):
 
-At first use ``csrc/pose_graph.cpp`` (at the root of the repository) is
+- ``pose_graph_optimize``: SE(3) keyframe pose-graph Gauss-Newton
+  (``csrc/pose_graph.cpp``);
+- ``decode_rgbd_batch``: threaded JPEG / 16-bit PNG RGB-D frame decoding
+  (``csrc/rgbd_io.cpp``, which links libpng and libjpeg).
+
+At first use each source (in ``csrc/`` at the root of the repository) is
 compiled with ``g++ -O3 -fPIC -shared -std=c++17`` into the port's
 git-ignored build directory (``ops/kernels/build/``), under a name that
 carries a hash of the source and the flags.  Nothing is compiled at import,
-and a failed build raises: there is no Python fallback.
+and a failed build raises with the compiler's message: there is no Python
+fallback.
 """
 
 from __future__ import annotations
@@ -22,34 +28,47 @@ import numpy as np
 
 from .ops.kernels._build import BUILD_DIR
 
-POSE_GRAPH_SRC = Path(__file__).resolve().parents[1] / "csrc" / \
-    "pose_graph.cpp"
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+POSE_GRAPH_SRC = CSRC / "pose_graph.cpp"
+RGBD_IO_SRC = CSRC / "rgbd_io.cpp"
 CXX_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17"]
+RGBD_IO_LIBS = ["-lpng", "-ljpeg", "-lz", "-lpthread"]
+
+
+def _build(src: Path, stem: str, libs=()) -> Path:
+    """Compile ``src`` into ``BUILD_DIR/lib<stem>_<hash>.so`` unless it is
+    built; returns the library's path."""
+    if not src.exists():
+        raise RuntimeError(f"{src} not found: the native components build "
+                           "from the repository's csrc/")
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join([*CXX_FLAGS, *libs]).encode())
+    so = BUILD_DIR / f"lib{stem}_{h.hexdigest()[:16]}.so"
+    if so.exists():
+        return so
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        raise RuntimeError(f"no C++ compiler (g++) for csrc/{src.name}")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    res = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(src), *libs],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"g++ failed for {src.name}:\n{res.stderr}")
+    os.replace(tmp, so)
+    return so
 
 
 def build_pose_graph() -> Path:
     """Compile ``csrc/pose_graph.cpp`` unless it is built; returns the
     library's path."""
-    if not POSE_GRAPH_SRC.exists():
-        raise RuntimeError(f"{POSE_GRAPH_SRC} not found: the native solver "
-                           "builds from the repository's csrc/")
-    h = hashlib.sha256(POSE_GRAPH_SRC.read_bytes())
-    h.update(" ".join(CXX_FLAGS).encode())
-    so = BUILD_DIR / f"libposegraph_{h.hexdigest()[:16]}.so"
-    if so.exists():
-        return so
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        raise RuntimeError("no C++ compiler (g++) for csrc/pose_graph.cpp")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    res = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp),
-                          str(POSE_GRAPH_SRC)], capture_output=True,
-                         text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"g++ failed for pose_graph.cpp:\n{res.stderr}")
-    os.replace(tmp, so)
-    return so
+    return _build(POSE_GRAPH_SRC, "posegraph")
+
+
+def build_rgbd_io() -> Path:
+    """Compile ``csrc/rgbd_io.cpp`` against libpng and libjpeg unless it is
+    built; returns the library's path."""
+    return _build(RGBD_IO_SRC, "rgbdio", RGBD_IO_LIBS)
 
 
 @functools.lru_cache()
@@ -101,3 +120,40 @@ def pose_graph_optimize(views, edges, z_rel, weights=None, iters: int = 10,
     if err < 0:
         raise RuntimeError("pose_graph_optimize failed (singular system?)")
     return np.transpose(poses, (0, 2, 1)).astype(np.float32), float(err)
+
+
+@functools.lru_cache()
+def _rgbdio_fn():
+    fn = ctypes.CDLL(str(build_rgbd_io())).decode_rgbd_batch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_char_p),
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
+        ctypes.c_int,
+    ]
+    return fn
+
+
+def decode_rgbd_batch(rgb_paths, depth_paths, height: int, width: int,
+                      depth_scale: float, n_threads: int = 8):
+    """Decode a batch of (JPEG rgb, 16-bit PNG depth) frames in parallel
+    threads.
+
+    Returns (rgb [N, 3, H, W] float32 in [0, 1], depth [N, H, W] float32
+    in depth units / ``depth_scale``, the number of frames decoded); a frame
+    that fails to decode stays zero.
+    """
+    if len(rgb_paths) != len(depth_paths):
+        raise ValueError(f"{len(rgb_paths)} rgb paths but "
+                         f"{len(depth_paths)} depth paths")
+    n = len(rgb_paths)
+    rgb = np.zeros((n, 3, height, width), np.float32)
+    depth = np.zeros((n, height, width), np.float32)
+    c_rgb = (ctypes.c_char_p * n)(*[os.fsencode(p) for p in rgb_paths])
+    c_dep = (ctypes.c_char_p * n)(*[os.fsencode(p) for p in depth_paths])
+    ptr = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+    ok = _rgbdio_fn()(c_rgb, c_dep, n, int(height), int(width),
+                      ctypes.c_float(depth_scale), ptr(rgb), ptr(depth),
+                      int(n_threads))
+    return rgb, depth, ok

@@ -434,6 +434,62 @@ def test_backward_bit_reproducible(dev):
     assert render.row_launches == {2: 2, 12: 2}
 
 
+@pytest.mark.parametrize("alpha_grad", [True, False])
+def test_api_bit_equal_to_rasterize(dev, alpha_grad):
+    """``GaussianRasterizer`` on the card: outputs and gradients bit-equal
+    to ``rasterize``'s on the same inputs and loss (without its silhouette
+    term when ``alpha_grad`` is off), with ``rasterize``'s launches: one
+    render_fwd, tile_scatter_sum and render_bwd and two segment_sum_rows
+    (F = 2 and 12) per forward + backward, no segment_sum."""
+    from diff_gaussian_rasterization_tpu_torch import (
+        GaussianRasterizationSettings, GaussianRasterizer)
+    means, kw, cam = small_scene(p=200, h=40, w=56, seed=3, sh_degree=1,
+                                 device=dev)
+    cfg = RasterConfig(tile_h=8, tile_w=16, chunk=16)
+    names = ("means3D", "scales", "rotations", "opacities", "shs")
+
+    def leaves():
+        d = {k: (means if k == "means3D" else kw[k]).detach().clone()
+             .requires_grad_(True) for k in names}
+        d["means2D"] = torch.zeros(200, 3, device=dev, requires_grad=True)
+        d["viewmatrix"] = cam.viewmatrix.detach().clone().requires_grad_(True)
+        return d
+
+    def loss(color, depth, median, var, alpha, w_alpha):
+        return (color.sum() + 0.3 * depth.sum() + 0.15 * median.sum()
+                + 0.1 * var.sum() + w_alpha * alpha.sum())
+
+    a = leaves()
+    settings = GaussianRasterizationSettings(
+        image_height=40, image_width=56, tanfovx=cam.tanfovx,
+        tanfovy=cam.tanfovy, bg=kw["bg"], scale_modifier=1.0,
+        viewmatrix=a["viewmatrix"], sh_degree=1)
+    render.reset_launches()
+    out = GaussianRasterizer(settings, cfg, alpha_grad=alpha_grad)(
+        **a, gt_depth=kw["gt_depth"])
+    loss(out[0], out[2], out[3], out[4], out[5], 0.2).backward()
+    torch.cuda.synchronize()
+    counts, rows = dict(render.launches), dict(render.row_launches)
+    assert counts == dict(counts, render_fwd=1, tile_scatter_sum=1,
+                          render_bwd=1, segment_sum=0, segment_sum_rows=2)
+    assert rows == {2: 1, 12: 1}
+
+    b = leaves()
+    ref = ras.rasterize(
+        b["means3D"], cam.replace(viewmatrix=b["viewmatrix"]), cfg,
+        means2D=b["means2D"][:, :2], sh_degree=1, bg=kw["bg"],
+        gt_depth=kw["gt_depth"],
+        **{k: b[k] for k in names if k != "means3D"})
+    loss(ref.color, ref.depth, ref.depth_median, ref.depth_var,
+         ref.opacity_map, 0.2 if alpha_grad else 0.0).backward()
+    for x, y in zip(out, ref[:8]):
+        assert torch.equal(x, y)
+    for k in a:
+        assert torch.equal(a[k].grad, b[k].grad), k
+    assert not a["means2D"].grad[:, 2].any()
+    assert a["means2D"].grad[:, :2].any()
+
+
 def jvp_inputs(tile, k_t, full, device, seed=0):
     """A small scene's sorted table and binning, and a seeded tangent
     table [I, per_k * K] (the same rows for the card and the CPU)."""

@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, nothing of the JAX package.
 
 A subprocess with ``jax`` and ``diff_gaussian_rasterization_tpu`` blocked
-in ``sys.modules`` imports every module of the port (its ``examples`` too)
+in ``sys.modules`` imports every module of the port (its reference-style
+``api`` and its four ``examples`` too)
 and its root scripts (``chip_smoke.py``, ``ab_render_fwd.py``), and builds
 nothing while it does; a scan of their sources finds no import of either.
 """
@@ -34,7 +35,10 @@ assert not any(k == f or k.startswith(f + ".") for k in sys.modules
 from diff_gaussian_rasterization_tpu_torch import native
 from diff_gaussian_rasterization_tpu_torch.ops.kernels import _build
 assert not _build._libs and native._posegraph_fn.cache_info().currsize == 0
-assert "diff_gaussian_rasterization_tpu_torch.examples.bench_ate" in names
+assert native._rgbdio_fn.cache_info().currsize == 0
+for mod in ("api", "examples.bench_ate", "examples.render_ply",
+            "examples.fit_scene", "examples.run_slam"):
+    assert "diff_gaussian_rasterization_tpu_torch." + mod in names, mod
 print(len(names))
 """
 

@@ -1,5 +1,5 @@
-"""The port's native pose-graph solver and its normal-equation solver
-against the JAX package's, on the CPU.
+"""The port's native pose-graph solver, RGB-D decoder and normal-equation
+solver against the JAX package's, on the CPU.
 
 ``native.pose_graph_optimize`` is built by the port (g++ into its own
 build directory, never the JAX package's ``_native/``) from the same
@@ -8,7 +8,11 @@ build directory, never the JAX package's ``_native/``) from the same
 result at atol 1e-12 (the same float64 C++ on the same inputs).
 ``parallel.sharded.refine_poses_sharded(mesh=None)`` holds the JAX
 package's at atol 1e-5 (float32 normal equations summed in another
-order).
+order).  ``native.decode_rgbd_batch`` (g++ builds ``csrc/rgbd_io.cpp``
+against libpng and libjpeg into the same directory) decodes written JPEG /
+16-bit PNG pairs bit-equal to the JAX package's ``decode_rgbd_batch`` and
+like PIL as ``test_native.test_rgbd_decoder_roundtrip`` holds it; a failed
+build raises with the compiler's message.
 """
 
 import jax.numpy as jnp
@@ -114,3 +118,61 @@ def test_refine_poses_mesh_raises():
     with pytest.raises(NotImplementedError):
         sharded.refine_poses_sharded(noisy, edges, zs, mesh=object())
 
+
+
+def write_rgbd(tmp_path, n=3, h=32, w=48, seed=0):
+    """``test_native.test_rgbd_decoder_roundtrip``'s frames: random JPEG
+    colors (quality 95) and 16-bit PNG depths."""
+    from PIL import Image
+    rng = np.random.RandomState(seed)
+    rgb_paths, depth_paths, depths = [], [], []
+    for i in range(n):
+        rgb = rng.randint(0, 255, (h, w, 3), np.uint8)
+        depth = rng.randint(0, 60000, (h, w)).astype(np.uint16)
+        rp, dp = str(tmp_path / f"frame{i}.jpg"), str(tmp_path / f"depth{i}.png")
+        Image.fromarray(rgb).save(rp, quality=95)
+        Image.fromarray(depth).save(dp)
+        rgb_paths.append(rp)
+        depth_paths.append(dp)
+        depths.append(depth)
+    return rgb_paths, depth_paths, depths
+
+
+def test_decode_rgbd_batch_matches_jax_native(tmp_path):
+    from PIL import Image
+    h, w = 32, 48
+    rgb_paths, depth_paths, depths = write_rgbd(tmp_path, h=h, w=w)
+    rgb, depth, ok = native.decode_rgbd_batch(
+        rgb_paths, depth_paths, h, w, depth_scale=5000.0, n_threads=2)
+    want_rgb, want_depth, want_ok = jnative.decode_rgbd_batch(
+        rgb_paths, depth_paths, h, w, depth_scale=5000.0, n_threads=2)
+    assert ok == want_ok == 3
+    assert rgb.dtype == depth.dtype == np.float32
+    assert rgb.shape == (3, 3, h, w) and depth.shape == (3, h, w)
+    np.testing.assert_array_equal(rgb, want_rgb)
+    np.testing.assert_array_equal(depth, want_depth)
+    for i in range(3):
+        ref = np.asarray(Image.open(rgb_paths[i]), np.float32)
+        ref = ref.transpose(2, 0, 1) / 255.0
+        assert np.abs(rgb[i] - ref).mean() < 0.02
+        np.testing.assert_allclose(
+            depth[i], depths[i].astype(np.float32) / 5000.0, atol=1e-4)
+    # a missing frame stays zero and is not counted
+    rgb2, depth2, ok2 = native.decode_rgbd_batch(
+        [rgb_paths[0], str(tmp_path / "none.jpg")],
+        [depth_paths[0], depth_paths[1]], h, w, 5000.0)
+    assert ok2 == 1 and not rgb2[1].any()
+    np.testing.assert_array_equal(rgb2[0], rgb[0])
+
+
+def test_rgbd_io_builds_in_the_port(tmp_path, monkeypatch):
+    so = native.build_rgbd_io()
+    assert so.parent == BUILD_DIR and so.name.startswith("librgbdio_")
+    assert native.build_rgbd_io() == so  # built once
+    # a source that does not compile raises with the compiler's message
+    bad = tmp_path / "bad.cpp"
+    bad.write_text("int f( {\n")
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed for bad.cpp"):
+        native._build(bad, "bad")
+    assert not list((tmp_path / "build").glob("*.so"))
