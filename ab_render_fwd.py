@@ -29,13 +29,16 @@ import sys
 import time
 
 
-def entry_takes_pairs(src: str) -> bool:
+def entry_signature(src: str):
     """Whether the source's ``render_fwd`` C entry point takes the pair
-    counter before the stream (17 parameters; the older one takes 16)."""
+    counter before the stream, and whether it takes the first tile's
+    index ``tile0`` after ``tiles_x`` (16 parameters without either, 17
+    with the counter, 18 with both)."""
     m = re.search(r'extern "C" int render_fwd\((.*?)\)', src, re.S)
     if m is None:
         raise ValueError("no render_fwd entry point in the source")
-    return m.group(1).count(",") + 1 == 17
+    tile0 = "int tile0" in m.group(1)
+    return m.group(1).count(",") + 1 - tile0 == 17, tile0
 
 
 def main(baselines):
@@ -65,14 +68,14 @@ def main(baselines):
     for i, base in enumerate(baselines):
         src = os.path.join(base, "render_fwd.cu")
         so = os.path.abspath(os.path.join(out_dir, f"base{i}_{os.getpid()}.so"))
-        jobs[base] = (so, entry_takes_pairs(open(src).read()),
+        jobs[base] = (so, *entry_signature(open(src).read()),
                       subprocess.Popen(
                           [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", so,
                            src], stdout=subprocess.PIPE,
                           stderr=subprocess.STDOUT, text=True))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     libs = {}
-    for base, (so, pairs, proc) in jobs.items():
+    for base, (so, pairs, tile0, proc) in jobs.items():
         log_text, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {base}:\n{log_text}")
@@ -80,21 +83,23 @@ def main(baselines):
             if line.startswith("render_fwd_kernel"):
                 cs.log(f"[build] {base}: {line}")
         lib = ctypes.CDLL(so)
-        lib.render_fwd.argtypes = ([P] * 6 + [I] * 6 + [F] * 3
-                                   + [P] * (2 if pairs else 1))
+        lib.render_fwd.argtypes = ([P] * 6 + [I] * (7 if tile0 else 6)
+                                   + [F] * 3 + [P] * (2 if pairs else 1))
         lib.render_fwd.restype = I
-        libs[base] = (lib, pairs)
+        libs[base] = (lib, pairs, tile0)
 
     def launcher(base, table, start, stop, gt, out_f, out_i, cfg, tiles_x,
                  height, width):
-        lib, pairs = libs[base]
+        lib, pairs, tile0 = libs[base]
         extra = (None,) if pairs else ()
+        first = (0,) if tile0 else ()
 
         def go():
             rc = lib.render_fwd(
                 table.data_ptr(), start.data_ptr(), stop.data_ptr(),
                 gt.data_ptr(), out_f.data_ptr(), out_i.data_ptr(),
-                start.shape[0], tiles_x, cfg.tile_w, cfg.tile_h, width,
+                start.shape[0], tiles_x, *first, cfg.tile_w, cfg.tile_h,
+                width,
                 height, cfg.alpha_cap, cfg.alpha_min, cfg.t_terminate,
                 *extra, torch.cuda.current_stream().cuda_stream)
             if rc != 0:

@@ -112,10 +112,34 @@ the tracking benchmark's frame (``bench_tracking.py``: 100,000 Gaussians,
    model (two views at 1200x680, the PNGs equal to the quantized
    ``render_model`` images), ``fit_scene`` for 20 iterations (the loss
    falls), ``run_slam`` on 6 frames (ATE below the static-pose
-   baseline's), each launching its kernels.
+   baseline's), each launching its kernels;
+7. the parallel layer (``parallel/``): MESH_RANKS ranks spawned with
+   ``parallel.mesh.spawn`` on a gloo world, all on cuda:0 (NCCL takes one
+   rank a card), each checking: the tile-sharded ``rasterize`` at the
+   bench scene (tile=2), forward and backward, every output and gradient
+   bit-equal to the unsharded render on the same card, and with
+   ``shard_binning`` within the bench-scale row rule, the same instance
+   count and no overflow; its band's ``render_fwd`` and ``render_bwd`` at
+   its ``tile0`` against their plain versions; the tile-sharded
+   ``rasterize_with_pose_jvp`` (light, K = 6) at the tracking frame
+   bit-equal to the unsharded, and ``render_jvp`` at its ``tile0``
+   against its plain version; one ``map_step`` at 500k over two
+   keyframes, keyframe-sharded (kf=2) and map-sharded (map=2, a budget of
+   half the capacity), against the one-device step (the loss, the
+   gradients, the parameters where the gradient is live); and
+   ``run_slam`` at the record configuration on kf=2 for MESH_SLAM_FRAMES
+   frames (a mapping round a keyframe, a refinement at the end) against
+   the one-device run of the same frames (poses within 5e-3, ATE within
+   2e-3 m, the same keyframes; both frames/s printed); every rank ending
+   bit-identical, every path's kernels launched on every rank, and the
+   forward + backward times (unsharded, tile-sharded, and the collectives
+   inside it, CUDA events); then a one-rank NCCL world's tile-sharded
+   bench render bit-equal to the unsharded.  Two ranks share one card
+   and gloo stages through the host: no speedup is expected.
 
 Prints the card's name and power limit, a ``kernels`` JSON line, a
-``slam`` JSON line, and last the line ``{"ok": true, "device": {...}}``.
+``slam`` JSON line, a ``mesh`` JSON line, and last the line
+``{"ok": true, "device": {...}}``.
 Exits non-zero, without that line, when there is no CUDA device or any
 phase fails.
 """
@@ -1896,6 +1920,485 @@ def api_examples(dev, check):
           "every kernel of the SLAM path")
 
 
+# --------------------------------------------------------------------------
+# 7. the parallel layer on a mesh of ranks sharing the card
+# --------------------------------------------------------------------------
+
+MESH_RANKS = 2          # ranks of phase 7's gloo world, all on cuda:0
+MESH_SLAM_FRAMES = 10   # frames of the meshed run_slam (keyframes 0, 3, 6,
+                        # 9; a mapping round each; a refinement at the end)
+MESH_TIMEOUT = 900      # seconds a spawned world may take
+MESH_XI = (0.02, -0.01, 0.015, 0.03, -0.02, 0.01)  # the second keyframe's
+
+
+def _digest(x) -> str:
+    import hashlib
+    return hashlib.sha256(x.detach().contiguous().cpu().numpy()
+                          .tobytes()).hexdigest()[:16]
+
+
+def _row_rule(a, b, rtol=1e-5, atol=1e-6):
+    """``|a - b| <= atol + rtol |b| + COL_EPS * max |b|`` (the bench-scale
+    rule: float32 sums carry about 1e-6 of a column's largest value)
+    throughout; returns (ok, max_abs_err)."""
+    a, b = a.detach().double(), b.detach().double()
+    d = (a - b).abs()
+    scale = float(b.abs().max()) if b.numel() else 0.0
+    ok = bool((d <= atol + rtol * b.abs() + COL_EPS * scale).all())
+    return ok, float(d.max()) if d.numel() else 0.0
+
+
+class _CollectiveTimer:
+    """Records CUDA events around every ``all_gather`` / ``all_reduce`` of
+    ``parallel.sharded`` and ``parallel.shard_bin`` while active."""
+
+    def __init__(self):
+        self.pairs = []
+
+    def __enter__(self):
+        import torch
+        from diff_gaussian_rasterization_tpu_torch.parallel import (
+            shard_bin, sharded)
+        self.saved = []
+        for mod in (sharded, shard_bin):
+            for name in ("all_gather", "all_reduce"):
+                fn = getattr(mod, name)
+
+                def timed(*a, _fn=fn, **k):
+                    e0 = torch.cuda.Event(enable_timing=True)
+                    e1 = torch.cuda.Event(enable_timing=True)
+                    e0.record()
+                    out = _fn(*a, **k)
+                    e1.record()
+                    self.pairs.append((e0, e1))
+                    return out
+                self.saved.append((mod, name, fn))
+                setattr(mod, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+    def ms(self):
+        import torch
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.pairs)
+
+
+def _render_leaves(means, kw, cam, cfg, wc, **extra):
+    """``rasterize`` forward + backward of ``loss_of``: (outputs, grads of
+    every leaf and of the view matrix)."""
+    from diff_gaussian_rasterization_tpu_torch.ops import rasterize as ras
+    args = dict(kw)
+    leaves = {k: args.pop(k).detach().clone().requires_grad_(True)
+              for k in GRAD_LEAVES if k in args}
+    means = means.detach().clone().requires_grad_(True)
+    view = cam.viewmatrix.detach().clone().requires_grad_(True)
+    out = ras.rasterize(means, cam.replace(viewmatrix=view), cfg, **leaves,
+                        **args, **extra)
+    loss_of(out, wc).backward()
+    grads = {"means3D": means.grad, "view": view.grad,
+             **{k: v.grad for k, v in leaves.items()}}
+    return out, grads
+
+
+def mesh_rank(rank, n, slam_data, device_type="cuda"):
+    """Phase 7 on one rank of a gloo world whose ranks share cuda:0.
+    Returns the rank's checks, log lines, digests (for bit-identity across
+    ranks), launch counts, times and its meshed run_slam."""
+    import torch
+    from diff_gaussian_rasterization_tpu_torch.config import RasterConfig
+    from diff_gaussian_rasterization_tpu_torch.models import runner
+    from diff_gaussian_rasterization_tpu_torch.models.gaussians import (
+        PARAM_FIELDS, DensifyState)
+    from diff_gaussian_rasterization_tpu_torch.models.lie import apply_twist
+    from diff_gaussian_rasterization_tpu_torch.models.slam import (
+        Frame, MappingConfig, frozen_budget, make_map_optimizer, map_step,
+        render_model)
+    from diff_gaussian_rasterization_tpu_torch.ops import rasterize as ras
+    from diff_gaussian_rasterization_tpu_torch.ops.kernels import render
+    from diff_gaussian_rasterization_tpu_torch.parallel import sharded
+    from diff_gaussian_rasterization_tpu_torch.parallel.mesh import (
+        make_mesh, rank_device)
+    from diff_gaussian_rasterization_tpu_torch.scenes import (
+        bench_camera, bench_scene, mapping_model, tracking_frame)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = rank_device(rank, device_type)
+    res = dict(checks=[], logs=[], digest={}, counts={}, times={})
+    check = lambda ok, what: res["checks"].append((bool(ok), what))
+    log_ = res["logs"].append
+    tile_mesh = make_mesh((1, n), ("kf", "tile"), backend="gloo",
+                          device=device_type)
+
+    # -- 7.1 tile-sharded rasterize at the bench scene --------------------
+    cfg = RasterConfig(tile_h=32, tile_w=32)
+    means, kw = bench_scene(device=dev)
+    cam = bench_camera(device=dev)
+    n_inst = int(ras.count_instances(means, cam, cfg, **kw))
+    cfg = cfg.replace(max_instances=int(-(-n_inst * 1.1 // 1024) * 1024))
+    wc = torch.as_tensor(np.random.RandomState(1).uniform(
+        0.5, 1, (3, 1, 1)).astype(np.float32), device=dev)
+    out1, g1 = _render_leaves(means, kw, cam, cfg, wc)
+    render.reset_launches()
+    out2, g2 = _render_leaves(means, kw, cam, cfg, wc, mesh=tile_mesh)
+    torch.cuda.synchronize()
+    res["counts"]["tile"] = dict(render.launches)
+    same = all(torch.equal(getattr(out1, f), getattr(out2, f))
+               for f in out1._fields)
+    same_g = all(torch.equal(g1[k], g2[k]) for k in g1)
+    check(same and same_g, f"mesh: tile-sharded rasterize at 100k (tile="
+          f"{n}): every output and gradient bit-equal to the unsharded")
+    for f in ("color", "depth", "gau_uncertainty"):
+        res["digest"][f"tile/{f}"] = _digest(getattr(out2, f))
+    for k in g2:
+        res["digest"][f"tile/g_{k}"] = _digest(g2[k])
+    render.reset_launches()
+    out3, g3 = _render_leaves(means, kw, cam, cfg, wc, mesh=tile_mesh,
+                              shard_binning=True)
+    torch.cuda.synchronize()
+    res["counts"]["shard_binning"] = dict(render.launches)
+    oks, worst = [], 0.0
+    for f in ("color", "depth", "depth_median", "opacity_map",
+              "gau_uncertainty"):
+        ok, e = _row_rule(getattr(out3, f), getattr(out1, f), rtol=0,
+                          atol=2e-4)
+        oks.append(ok)
+        worst = max(worst, e)
+    for k in g1:
+        ok, e = _row_rule(g3[k], g1[k], rtol=1e-3, atol=2e-4)
+        oks.append(ok)
+        worst = max(worst, e)
+    ok_int = (torch.equal(out3.gau_related_pixels, out1.gau_related_pixels)
+              and int(out3.num_rendered) == int(out1.num_rendered)
+              and not bool(out3.overflow))
+    log_(f"[mesh] shard-binned rasterize at 100k: largest difference from "
+         f"the unsharded {worst}; instances {int(out3.num_rendered)} "
+         f"(unsharded {int(out1.num_rendered)}), overflow "
+         f"{bool(out3.overflow)}")
+    check(all(oks) and ok_int, "mesh: shard-binned rasterize at 100k within "
+          "the bench-scale row rule of the unsharded (atol 2e-4 + 2e-6 x the "
+          "column's largest value; gradients also rtol 1e-3), the same "
+          "instance count and pixel counts, no overflow")
+    # this rank's band: render_fwd and render_bwd at its tile0 against
+    # their plain versions
+    _, binn, feat, gt_tiles = ras.prepare(
+        means, cam, cfg, cfg.max_instances, kw["gt_depth"],
+        **{k: v for k, v in kw.items() if k not in ("bg", "gt_depth")})
+    table = feat[binn.gauss_id].detach().contiguous()
+    core_kw = dict(cfg=cfg, tiles_x=-(-cam.width // cfg.tile_w),
+                   height=cam.height, width=cam.width)
+    tile0, count = sharded.tile_share(binn.tile_start.shape[0], n, rank)
+    band = [sharded.local_tiles(x, tile0, count)
+            for x in (binn.tile_start, binn.tile_stop, gt_tiles)]
+    k = sharded.core_fwd_local(table, binn.tile_start, binn.tile_stop,
+                               gt_tiles, rank, n, **core_kw)
+    p = render.core_fwd_reference(table, *band, tile0=tile0, **core_kw)
+    err_f, _, ok_f = compare_core(k, p)
+    g = torch.Generator().manual_seed(rank)
+    cots = tuple(torch.randn(tuple(x.shape), generator=g).to(dev) for x in
+                 (k.color, k.depth, k.weight, k.var, k.median, k.t_final))
+    totals = (k.color, k.depth, k.weight, k.var, k.t_final)
+    rows_k = render.core_bwd(table, *band, totals, cots,
+                             n_contrib=k.n_contrib, tile0=tile0, **core_kw)
+    pix = render.blend.bwd_pixel_inputs(band[2], *totals, *cots)
+    rows_p = render.core_bwd_reference(table, band[0], band[1],
+                                       pix.contiguous(), tile0=tile0,
+                                       **core_kw)
+    tile_ok = (k.n_contrib == p.n_contrib).all(dim=1)
+    inst = torch.zeros(rows_k.shape[0], dtype=torch.bool, device=dev)
+    for t in torch.nonzero(tile_ok).flatten().tolist():
+        inst[int(band[0][t]):int(band[1][t])] = True
+    ok_b, err_b = _row_rule(rows_k[inst], rows_p[inst], rtol=1e-3,
+                            atol=2e-4)
+    log_(f"[mesh] rank {rank}: tiles {tile0}..{tile0 + count - 1} "
+         f"(tile0 {tile0}): render_fwd vs plain max_abs_err {err_f}, "
+         f"render_bwd vs plain {err_b} on {int(tile_ok.sum())} of {count} "
+         f"tiles")
+    check(ok_f and ok_b and float((~tile_ok).float().mean()) < 0.05,
+          f"mesh: render_fwd and render_bwd at tile0 {tile0} match their "
+          f"plain versions on the band (rank {rank})")
+    res["errs"] = dict(fwd=err_f, bwd=err_b)
+    # times: a forward + backward, unsharded and tile-sharded, and the
+    # collectives inside the sharded one (CUDA events)
+    step = lambda **m: _render_leaves(means, kw, cam, cfg, wc, **m)
+    res["times"]["fwd_bwd_ms"] = time_ms(step, iters=5)
+    res["times"]["fwd_bwd_tile_ms"] = time_ms(
+        lambda: step(mesh=tile_mesh), iters=5)
+    with _CollectiveTimer() as ct:
+        for _ in range(5):
+            step(mesh=tile_mesh)
+        res["times"]["collectives_ms"] = ct.ms() / 5
+    del out1, out2, out3, g1, g2, g3, feat, table
+
+    # -- 7.2 the tile-sharded dual render at the tracking frame ----------
+    ts = tracking_frame(device=dev)
+    tmeans = ts.model.means3D.detach()
+    with torch.no_grad():
+        kwm = ts.model.raster_kwargs()
+    margin = ts.tcfg.bin_margin_px
+    tbinn = ras.bin_for_view(
+        tmeans, ts.camera, ts.cfg.replace(bin_margin_px=margin),
+        max_instances=frozen_budget(ts.cfg, tmeans.shape[0], margin), **kwm)
+    tw = twist_basis(ts.camera.viewmatrix)
+    dual = lambda **m: ras.rasterize_with_pose_jvp(
+        tmeans, ts.camera, ts.cfg, tw, gt_depth=ts.frame.depth, binn=tbinn,
+        **kwm, **m)
+    j1 = dual()
+    render.reset_launches()
+    j2 = dual(mesh=tile_mesh)
+    torch.cuda.synchronize()
+    res["counts"]["dual"] = dict(render.launches)
+    same = (all(torch.equal(getattr(j1.out, f), getattr(j2.out, f))
+                for f in j1.out._fields)
+            and all(torch.equal(getattr(j1, f), getattr(j2, f))
+                    for f in ("color", "depth", "opacity_map")))
+    check(same, "mesh: tile-sharded rasterize_with_pose_jvp (light, K = 6) "
+          "at the tracking frame bit-equal to the unsharded")
+    res["digest"]["dual/color"] = _digest(j2.color)
+    with torch.no_grad():
+        _, _, jtable, jtans, jgt = ras.pose_jvp_tables(
+            tmeans, ts.camera, ts.cfg, tw, None, ts.frame.depth, binn=tbinn,
+            **kwm)
+    jkw = dict(cfg=ts.cfg, tiles_x=-(-ts.camera.width // ts.cfg.tile_w),
+               height=ts.camera.height, width=ts.camera.width)
+    jt0, jcount = sharded.tile_share(tbinn.tile_start.shape[0], n, rank)
+    ko, kt = sharded.core_fwd_jvp_local(jtable, jtans, tbinn.tile_start,
+                                        tbinn.tile_stop, jgt, rank, n, **jkw)
+    jband = [sharded.local_tiles(x, jt0, jcount)
+             for x in (tbinn.tile_start, tbinn.tile_stop, jgt)]
+    po, pt = render.core_fwd_jvp_reference(jtable, jtans, *jband, tile0=jt0,
+                                           **jkw)
+    err_j, _, ok_j = compare_core(ko, po)
+    tile_ok = (ko.n_contrib == po.n_contrib).all(dim=1)
+    for f in ("color", "depth", "weight", "t_final"):
+        ok, e = _row_rule(getattr(kt, f)[tile_ok], getattr(pt, f)[tile_ok],
+                          rtol=JVP_RTOL, atol=JVP_ATOL)
+        ok_j &= ok
+        err_j = max(err_j, e)
+    log_(f"[mesh] rank {rank}: render_jvp at tile0 {jt0} vs plain "
+         f"max_abs_err {err_j}")
+    check(ok_j and float((~tile_ok).float().mean()) < 0.05,
+          f"mesh: render_jvp at tile0 {jt0} matches its plain version on "
+          f"the band (rank {rank})")
+    res["errs"]["jvp"] = err_j
+    del ts, tmeans, kwm, tbinn, j1, j2, jtable, jtans
+
+    # -- 7.3 one map step at 500k over two keyframes ----------------------
+    base = mapping_model(device=dev)
+    views = torch.stack([cam.viewmatrix, apply_twist(cam.viewmatrix,
+                         torch.tensor(MESH_XI, device=dev))])
+    with torch.no_grad():
+        probes = [render_model(base, cam.replace(viewmatrix=v), cfg)
+                  for v in views]
+    map_cfg = cfg.replace(max_instances=int(-(-max(
+        int(pr.num_rendered) for pr in probes) * 1.1 // 1024) * 1024))
+    rgbs = torch.stack([torch.clamp(pr.color * 0.9 + 0.05, 0, 1)
+                        for pr in probes])
+    depths = torch.stack([pr.depth[0] for pr in probes])
+    mcfg = MappingConfig()
+
+    def one_step(**m):
+        model = mapping_model(device=dev)
+        opt = make_map_optimizer(model, mcfg)
+        dstate = DensifyState.zero(model.capacity, device=dev)
+        loss, _, _ = map_step(model, opt, dstate, views, rgbs, depths,
+                              torch.ones(2, device=dev), map_cfg, mcfg,
+                              cam.height, cam.width, cam.tanfovx,
+                              cam.tanfovy, 2, **m)
+        return float(loss), model
+
+    l1, m1 = one_step()
+    meshes = {"kf=2": (dict(kf_axis="kf"), (n, 1)),
+              "map=2": (dict(map_axis="map",
+                             map_budget=base.capacity // n), (1, n))}
+    for tag, (akw, shape) in meshes.items():
+        mesh = make_mesh(shape, ("kf", "map"), backend="gloo",
+                         device=device_type)
+        render.reset_launches()
+        l2, m2 = one_step(mesh=mesh, **akw)
+        torch.cuda.synchronize()
+        res["counts"][f"map {tag}"] = dict(render.launches)
+        oks, worst_g, worst_p = [], 0.0, 0.0
+        lrs = dict(means3D=mcfg.lr_means, scales_log=mcfg.lr_scales,
+                   rotations=mcfg.lr_rotations,
+                   opacities_logit=mcfg.lr_opacities, sh=mcfg.lr_sh)
+        for f in PARAM_FIELDS:
+            a, b = getattr(m2, f), getattr(m1, f)
+            ok, e = _row_rule(a.grad, b.grad)
+            oks.append(ok)
+            worst_g = max(worst_g, e)
+            # Adam's first step moves an entry by about lr * sign(g): held
+            # where the gradient is live, within a tenth of the rate
+            live = b.grad.abs() >= 1e-6
+            dp = float((a.detach() - b.detach())[live].abs().max())
+            oks.append(dp <= lrs[f] / 10)
+            worst_p = max(worst_p, dp)
+            res["digest"][f"map {tag}/{f}"] = _digest(a)
+        ok_l = abs(l2 - l1) <= 1e-5 * max(abs(l1), 1.0)
+        log_(f"[mesh] map_step at 500k, 2 keyframes, {tag}: loss {l2!r} "
+             f"(one device {l1!r}); largest gradient difference {worst_g}, "
+             f"largest parameter difference where the gradient is live "
+             f"{worst_p}")
+        check(ok_l and all(oks), f"mesh: map_step at 500k on {tag}: the loss "
+              f"within 1e-5, the gradients within rtol 1e-5 / atol 1e-6 + "
+              f"2e-6 x the field's largest, the parameters within lr / 10 "
+              f"where the gradient is live, of the one-device step")
+        res["digest"][f"map {tag}/loss"] = repr(l2)
+        del m2
+    del base, m1, probes
+
+    # -- 7.4 run_slam at the record configuration on kf=2 -----------------
+    from diff_gaussian_rasterization_tpu_torch.examples import bench_ate
+    views_np, frames_np, cam_kw = slam_data
+    scfg = bench_ate.slam_config(bench_ate.parse_args([]))
+    scfg.mesh = make_mesh((n, 1), ("kf", "tile"), backend="gloo",
+                          device=device_type)
+    to = lambda a: torch.as_tensor(a, device=dev)
+    data = [(v, Frame(to(r), to(d))) for v, (r, d) in zip(views_np,
+                                                          frames_np)]
+    cam_t = bench_camera(device=dev).replace(**cam_kw)
+    render.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = runner.run_slam(data, scfg, cam_t)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res["counts"]["slam"] = dict(render.launches)
+    res["slam"] = dict(est_views=torch.stack(state.est_views),
+                       kf_idx=list(state.kf_idx), wall_s=wall)
+    res["digest"]["slam/views"] = _digest(torch.stack(state.est_views))
+    res["digest"]["slam/means"] = _digest(state.model.means3D)
+    return res
+
+
+def nccl_rank(rank, n):
+    """Phase 7's one-rank NCCL world: the tile-sharded bench render and its
+    gradients on a one-rank mesh, bit-equal to the unsharded."""
+    import torch
+    from diff_gaussian_rasterization_tpu_torch.config import RasterConfig
+    from diff_gaussian_rasterization_tpu_torch.ops import rasterize as ras
+    from diff_gaussian_rasterization_tpu_torch.ops.kernels import render
+    from diff_gaussian_rasterization_tpu_torch.parallel.mesh import make_mesh
+    from diff_gaussian_rasterization_tpu_torch.scenes import (
+        bench_camera, bench_scene)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh((1, n), ("kf", "tile"), backend="nccl", device="cuda")
+    cfg = RasterConfig(tile_h=32, tile_w=32)
+    means, kw = bench_scene(device=dev)
+    cam = bench_camera(device=dev)
+    wc = torch.as_tensor(np.random.RandomState(1).uniform(
+        0.5, 1, (3, 1, 1)).astype(np.float32), device=dev)
+    out1, g1 = _render_leaves(means, kw, cam, cfg, wc)
+    render.reset_launches()
+    out2, g2 = _render_leaves(means, kw, cam, cfg, wc, mesh=mesh)
+    torch.cuda.synchronize()
+    same = (all(torch.equal(getattr(out1, f), getattr(out2, f))
+                for f in out1._fields)
+            and all(torch.equal(g1[k], g2[k]) for k in g1))
+    return dict(same=same, backend=torch.distributed.get_backend(),
+                counts=dict(render.launches))
+
+
+def mesh_phase(dev, check):
+    """Phase 7: the parallel layer (``parallel/``) on a gloo world of
+    MESH_RANKS ranks sharing cuda:0 (NCCL takes one rank a card), then a
+    one-rank NCCL world."""
+    import torch
+    from diff_gaussian_rasterization_tpu_torch.examples import bench_ate
+    from diff_gaussian_rasterization_tpu_torch.models import runner
+    from diff_gaussian_rasterization_tpu_torch.ops.kernels import render
+    from diff_gaussian_rasterization_tpu_torch.parallel.mesh import spawn
+
+    # the meshed run_slam's frames: the record scene's first frames, made
+    # here once and handed to the ranks
+    args = bench_ate.parse_args([])
+    _, views, frames, cam_t = bench_ate.scene(args, dev)
+    views, frames = views[:MESH_SLAM_FRAMES], frames[:MESH_SLAM_FRAMES]
+    data = list(zip(views.cpu().numpy(), frames))
+    scfg = bench_ate.slam_config(args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one, _ = runner.run_slam(data, scfg, cam_t)
+    torch.cuda.synchronize()
+    wall_one = time.perf_counter() - t0
+    slam_data = (views.cpu().numpy(),
+                 [(f.rgb.cpu().numpy(), f.depth.cpu().numpy())
+                  for f in frames],
+                 dict(height=cam_t.height, width=cam_t.width,
+                      tanfovx=cam_t.tanfovx, tanfovy=cam_t.tanfovy))
+    t0 = time.time()
+    ranks = spawn(mesh_rank, MESH_RANKS, (slam_data, dev.type),
+                  backend="gloo", device_type=dev.type, timeout=MESH_TIMEOUT)
+    log(f"[mesh] {MESH_RANKS} gloo ranks on cuda:0 took "
+        f"{time.time() - t0:.1f} s")
+    for r, res in enumerate(ranks):
+        for line in res["logs"]:
+            log(line)
+        for ok, what in res["checks"]:
+            check(ok, f"{what} [rank {r}]")
+        log(f"[mesh] rank {r} launches: {json.dumps(res['counts'])}")
+        t = res["times"]
+        log(f"[mesh] rank {r}: forward + backward at 100k {t['fwd_bwd_ms']:.2f}"
+            f" ms unsharded, {t['fwd_bwd_tile_ms']:.2f} ms tile-sharded over "
+            f"{MESH_RANKS} ranks sharing the card, of which the collectives "
+            f"(gloo, through the host) {t['collectives_ms']:.2f} ms")
+    check(all(r["digest"] == ranks[0]["digest"] for r in ranks),
+          "mesh: every rank ends bit-identical (renders, gradients, mapped "
+          "models, losses, the SLAM poses and map)")
+    for tag, path in (("tile", ("render_fwd", "render_bwd",
+                                "tile_scatter_sum", "segment_sum_rows")),
+                      ("shard_binning", ("render_fwd", "render_bwd",
+                                         "tile_scatter_sum",
+                                         "segment_sum_rows")),
+                      ("dual", ("render_jvp", "tile_scatter_sum")),
+                      ("map kf=2", ("render_fwd", "render_bwd")),
+                      ("map map=2", ("render_fwd", "render_bwd")),
+                      ("slam", ("render_fwd", "render_bwd", "render_jvp",
+                                "tile_scatter_sum", "segment_sum_rows"))):
+        counts = [r["counts"][tag] for r in ranks]
+        check(all(c[k] >= 1 for c in counts for k in path),
+              f"mesh: the {tag} path launched {', '.join(path)} on every "
+              f"rank")
+    # the meshed run_slam against the one-device run of the same frames
+    mv = ranks[0]["slam"]["est_views"]
+    dv = np.stack([v.detach().cpu().numpy() for v in one.est_views])
+    gt = [np.asarray(v) for v in views.cpu().numpy()]
+    from diff_gaussian_rasterization_tpu_torch.io.replica import ate_rmse
+    ate_mesh = ate_rmse([torch.as_tensor(v) for v in mv], gt)
+    ate_one = ate_rmse(one.est_views, gt)
+    wall_mesh = ranks[0]["slam"]["wall_s"]
+    pose_err = float(np.abs(mv - dv).max())
+    log(f"[mesh] run_slam, record configuration, {MESH_SLAM_FRAMES} frames: "
+        f"kf=2 over {MESH_RANKS} ranks {MESH_SLAM_FRAMES / wall_mesh:.3f} "
+        f"frames/s, ATE {100 * ate_mesh:.3f} cm, keyframes "
+        f"{ranks[0]['slam']['kf_idx']}; one device "
+        f"{MESH_SLAM_FRAMES / wall_one:.3f} frames/s, ATE "
+        f"{100 * ate_one:.3f} cm, keyframes {list(one.kf_idx)}; largest "
+        f"pose difference {pose_err}")
+    check(pose_err <= 5e-3 and abs(ate_mesh - ate_one) < 2e-3
+          and ranks[0]["slam"]["kf_idx"] == list(one.kf_idx),
+          "mesh: run_slam on kf=2 within 5e-3 of the one-device poses, ATE "
+          "within 2e-3 m, the same keyframes")
+    # NCCL takes one rank a card: a one-rank world
+    t0 = time.time()
+    nres = spawn(nccl_rank, 1, backend="nccl", device_type="cuda",
+                 timeout=MESH_TIMEOUT)[0]
+    log(f"[mesh] one-rank NCCL world ({nres['backend']}) took "
+        f"{time.time() - t0:.1f} s; launches {nres['counts']}")
+    check(nres["same"] and nres["backend"] == "nccl"
+          and nres["counts"]["render_fwd"] >= 1,
+          "mesh: the tile-sharded bench render and gradients on a one-rank "
+          "NCCL mesh bit-equal to the unsharded")
+    render.reset_launches()
+    return dict(ranks=MESH_RANKS, fwd_bwd=[r["times"] for r in ranks],
+                slam_fps_mesh=MESH_SLAM_FRAMES / wall_mesh,
+                slam_fps_one=MESH_SLAM_FRAMES / wall_one,
+                ate_mesh_m=ate_mesh, ate_one_m=ate_one, pose_err=pose_err)
+
+
 def main():
     import torch
 
@@ -2289,6 +2792,10 @@ def main():
     log(f"[phase] 6c starts at +{time.time() - t_main:.1f} s")
     api_examples(dev, check)
 
+    # ---- 7. the parallel layer -----------------------------------------
+    log(f"[phase] 7 starts at +{time.time() - t_main:.1f} s")
+    mesh = mesh_phase(dev, check)
+
     # the largest errors over both scales' comparisons and the SLAM run's
     err_fwd, err_bwd, err_rows, err_u, err_ts = (
         max(bench[k], mapped[k], slam_errs[k])
@@ -2357,6 +2864,7 @@ def main():
     log(f"[phase] done at +{time.time() - t_main:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"slam": slam}))
+    log(json.dumps({"mesh": mesh}))
     if failures:
         log(f"FAILED: {failures}")
         return 1

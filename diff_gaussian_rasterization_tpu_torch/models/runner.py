@@ -1,5 +1,5 @@
-"""End-to-end Gaussian-splatting SLAM on one device: tracking, keyframes,
-mapping and pose-graph refinement (PyTorch port of the JAX package's
+"""End-to-end Gaussian-splatting SLAM: tracking, keyframes, mapping and
+pose-graph refinement (PyTorch port of the JAX package's
 ``models/runner.py``).
 
 Stream RGB-D frames, track each frame's pose against the map (pose-only
@@ -12,8 +12,12 @@ numpy, as in the JAX version, and read a few values from the device each
 frame (the tracking cost, the silhouette of a coverage or seeding render,
 its instance count, the last poses).
 
-Meshes (``SLAMConfig.mesh`` / ``map_axis``) are not ported: tracking,
-mapping and the pose-graph solver raise ``NotImplementedError`` for them.
+With ``SLAMConfig.mesh`` (a ``torch.distributed`` DeviceMesh) every rank
+runs the same loop on the same frames and keeps the same replicated
+state: mapping shards the keyframe window over ``kf_axis``, renders shard
+their tiles over ``tile_axis``, ``map_axis`` shards the map (with
+``kf_axis``, in one composed step), and refinement runs the edge-sharded
+pose-graph solver (``parallel/sharded.py``).
 """
 
 from __future__ import annotations
@@ -72,12 +76,17 @@ class SLAMConfig:
     # mapping window: "random" = latest + uniform random older keyframes;
     # "nearest" = latest + nearest older by pose, one random slot
     window_select: str = "random"
-    # distribution: not ported (a mesh raises NotImplementedError)
+    # distribution: a torch.distributed DeviceMesh enables, per axis name
+    # present with more than one rank, kf_axis: keyframe-parallel mapping;
+    # tile_axis: tile-sharded renders in tracking and mapping; map_axis:
+    # the map sharded, each frame gathering its visible subset (composed
+    # with kf_axis in one mapping step); and refinement through the
+    # edge-sharded solver (parallel.sharded.refine_poses_sharded)
     mesh: object = None
     kf_axis: str = "kf"
     tile_axis: str = "tile"
     map_axis: object = None
-    map_budget_per_shard: int = 0
+    map_budget_per_shard: int = 0   # 0 = capacity / map-axis ranks
     # move map Gaussians with their nearest keyframe's pose correction
     reanchor: bool = True
     # pose-graph measurements: each keyframe re-tracked against the map
@@ -464,8 +473,9 @@ def refine_keyframes(state: SLAMState, scfg: SLAMConfig = None,
     (``refine_track_iters`` iterations) and enters as an edge from pose 0
     weighted ``refine_abs_weight`` (gated by ``refine_cost_gate``).  With
     a config the solver is ``parallel.sharded.refine_poses_sharded``
-    (float32, one device); without, the native C++ solver.  Every frame
-    inherits the correction of its latest preceding keyframe,
+    (float32; edge-sharded over ``scfg.kf_axis``, or the mesh's first
+    axis, when ``scfg.mesh`` is set); without, the native C++ solver.
+    Every frame inherits the correction of its latest preceding keyframe,
     ``V_f' = V_f @ inv(V_kf) @ V_kf'``.
     """
     k = len(state.kf_views)
@@ -506,10 +516,16 @@ def refine_keyframes(state: SLAMState, scfg: SLAMConfig = None,
             ws.append(scfg.refine_abs_weight)
     if scfg is not None:
         from ..parallel.sharded import refine_poses_sharded
+        from ..parallel.mesh import check_mesh
+        mesh, axis = scfg.mesh, "kf"
+        check_mesh(mesh)
+        if mesh is not None:
+            axis = (scfg.kf_axis if scfg.kf_axis in mesh.mesh_dim_names
+                    else mesh.mesh_dim_names[0])
         refined = refine_poses_sharded(
             old.astype(np.float32), np.asarray(edges, np.int32),
-            np.stack(zs).astype(np.float32), mesh=scfg.mesh, iters=5,
-            weights=np.asarray(ws, np.float32))
+            np.stack(zs).astype(np.float32), mesh=mesh, axis=axis,
+            iters=5, weights=np.asarray(ws, np.float32))
     else:
         from .. import native
         refined, _ = native.pose_graph_optimize(

@@ -14,8 +14,16 @@ Mapping (CG-SLAM's mapping step) is Adam on the Gaussian parameters over a
 window of keyframes, each rendered with ``track_off=True``, with one
 parameter group per field.  The optimizers are PyTorch's and carry their
 own state, in place of the JAX version's optax state.  ``mapping_round``
-runs a window's steps with densify and uncertainty pruning.  The meshed
-(multi-device) paths are not ported yet and raise ``NotImplementedError``.
+runs a window's steps with densify and uncertainty pruning.
+
+Every function takes an optional ``mesh`` (a ``torch.distributed``
+DeviceMesh; every rank calls with the same inputs and keeps the same
+replicated model, optimizer state and poses): renders shard their tiles
+over ``tile_axis`` when it has more than one rank; ``map_axis`` shards the
+map, each frame rendering the visible subset gathered from every rank's
+rows (``parallel.sharded.gather_visible``); mapping shards a keyframe
+window over ``kf_axis``, the two composed in one step when both have
+more than one rank.
 """
 
 from __future__ import annotations
@@ -30,6 +38,9 @@ from ..camera import Camera
 from ..config import RasterConfig
 from ..ops.binning import default_max_instances
 from ..ops.rasterize import bin_for_view, rasterize, rasterize_with_pose_jvp
+from ..parallel import sharded
+from ..parallel.mesh import (all_reduce, axis_group, axis_size, check_mesh,
+                             has_axis)
 from . import lie
 from .gaussians import (PARAM_FIELDS, DensifyState, GaussianModel,
                         densify_and_prune, prune_by_uncertainty, split_noise)
@@ -48,6 +59,61 @@ def render_model(model: GaussianModel, camera: Camera, cfg: RasterConfig,
     the SH degree (default: all the model's bands)."""
     return rasterize(model.means3D, camera, cfg, gt_depth=gt_depth,
                      means2D=means2D, **model.raster_kwargs(sh_degree), **kw)
+
+
+def _mesh_kw(mesh, tile_axis) -> dict:
+    """``rasterize``'s keywords for tile-sharded rendering, when the mesh
+    has ``tile_axis`` with more than one rank."""
+    if has_axis(mesh, tile_axis):
+        return dict(mesh=mesh, tile_axis=tile_axis)
+    return {}
+
+
+class FieldModel(NamedTuple):
+    """A model given by its field tensors: the visible subset of a
+    map-sharded model gathered on every rank
+    (``parallel.sharded.gather_visible``, ``active`` cleared on the padding
+    slots), or differentiable copies of a model's fields.  Renders as a
+    :class:`GaussianModel` does."""
+
+    means3D: torch.Tensor
+    scales_log: torch.Tensor
+    rotations: torch.Tensor
+    opacities_logit: torch.Tensor
+    sh: torch.Tensor
+    active: torch.Tensor
+
+    def raster_kwargs(self, sh_degree: int = None):
+        op = torch.sigmoid(self.opacities_logit)
+        m = self.sh.shape[1]
+        deg = int(round(m ** 0.5)) - 1 if sh_degree is None else sh_degree
+        return dict(opacities=torch.where(self.active[:, None], op,
+                                          torch.zeros_like(op)),
+                    scales=torch.exp(self.scales_log),
+                    rotations=self.rotations, shs=self.sh, sh_degree=deg)
+
+
+def _gathered(g: dict, valid) -> FieldModel:
+    return FieldModel(**{k: g[k] for k in PARAM_FIELDS},
+                      active=g["active"] & valid)
+
+
+def _map_budget(model, mesh, map_axis, map_budget: int) -> int:
+    return map_budget or model.capacity // axis_size(mesh, map_axis)
+
+
+def _maybe_gather(model, view, mesh, map_axis, map_budget: int):
+    """Gaussian-map sharding: the visible subset (frozen at ``view``) of the
+    model's rows of every rank of ``map_axis``, gathered into a working
+    model; the model itself without a ``map_axis``."""
+    if mesh is None or not map_axis:
+        return model
+    prm = {k: getattr(model, k) for k in PARAM_FIELDS}
+    prm["active"] = model.active
+    g, valid, _ = sharded.gather_visible(
+        prm, view, mesh, map_axis,
+        budget_per_shard=_map_budget(model, mesh, map_axis, map_budget))
+    return _gathered(g, valid)
 
 
 def rgbd_loss(out, frame: Frame, w_color: float = 1.0, w_depth: float = 0.5,
@@ -155,7 +221,7 @@ class _Tracker:
 
     def __init__(self, model: GaussianModel, view0, rgb, depth,
                  cfg: RasterConfig, tcfg: TrackingConfig, height: int,
-                 width: int, tanfovx: float, tanfovy: float):
+                 width: int, tanfovx: float, tanfovy: float, mk=None):
         self.means = model.means3D.detach()
         self.kw = {k: (v.detach() if torch.is_tensor(v) else v)
                    for k, v in model.raster_kwargs().items()}
@@ -166,6 +232,7 @@ class _Tracker:
         self.zero = torch.zeros(6, dtype=view0.dtype, device=view0.device)
         self.inf = torch.full((), math.inf, dtype=view0.dtype,
                               device=view0.device)
+        self.mk = mk or {}   # tile sharding (_mesh_kw)
 
     def camera(self, view) -> Camera:
         tanfovx, tanfovy, height, width = self.geometry
@@ -175,7 +242,7 @@ class _Tracker:
     def render(self, xi, **kw):
         return rasterize(self.means, self.camera(lie.apply_twist(
             self.view0, xi)), self.cfg, gt_depth=self.frame.depth,
-            **self.kw, **kw)
+            **self.kw, **self.mk, **kw)
 
     def mask(self, out):
         return ((out.opacity_map[0] > self.tcfg.sil_threshold)
@@ -214,7 +281,7 @@ def _track_gn(tr: _Tracker, binnings=None):
         tw = torch.func.jacfwd(lambda x: lie.apply_twist(tr.view0, x))(xi)
         j = rasterize_with_pose_jvp(
             tr.means, tr.camera(view), cfg, tw.movedim(-1, 0),
-            gt_depth=tr.frame.depth, **tr.kw, **bkw)
+            gt_depth=tr.frame.depth, **tr.kw, **tr.mk, **bkw)
         out = j.out
         m = tr.mask(out)
         r = tr.residuals(out, m)
@@ -379,13 +446,15 @@ def track_frame(model: GaussianModel, view0, frame: Frame,
     half/quarter-resolution copies of the frame (same field of view), then
     polished at full resolution; levels the pooling cannot divide are
     skipped.  ``binnings``, when a list, receives each frozen binning
-    (``"gn"`` with ``freeze_binning``), one per level.  ``mesh`` and
-    ``map_axis`` (sharded tracking) are not ported.
+    (``"gn"`` with ``freeze_binning``), one per level.
+
+    With a ``mesh``: renders shard their tiles over ``tile_axis`` (when
+    it has more than one rank) and, with ``map_axis``, each level first
+    gathers the visible subset of the map-sharded model (visibility
+    frozen at the level's start pose).
     """
-    if mesh is not None or map_axis is not None:
-        raise NotImplementedError(
-            "sharded tracking (tile or map sharding) is not ported: "
-            "track_frame runs on one device")
+    check_mesh(mesh)
+    mk = _mesh_kw(mesh, tile_axis)
     impl = {"gn": _track_gn, "gn_fd": _track_gn_fd}.get(tcfg.method,
                                                         _track_adam)
     h, w = camera_template.height, camera_template.width
@@ -398,8 +467,9 @@ def track_frame(model: GaussianModel, view0, frame: Frame,
     with torch.no_grad():
         for s, tcfg_l in levels + [(1, tcfg)]:
             fl = frame if s == 1 else downsample_frame(frame, s)
-            tr = _Tracker(model, view, fl.rgb, fl.depth, cfg, tcfg_l, h // s,
-                          w // s, *fov)
+            work = _maybe_gather(model, view, mesh, map_axis, map_budget)
+            tr = _Tracker(work, view, fl.rgb, fl.depth, cfg, tcfg_l, h // s,
+                          w // s, *fov, mk=mk)
             xi, cost, costs = impl(tr, binnings)
             view = lie.apply_twist(tr.view0, xi)
     return view, cost, costs
@@ -476,7 +546,8 @@ def make_map_optimizer(model: GaussianModel,
 def map_step(model: GaussianModel, opt: MapOptimizer, dstate: DensifyState,
              views, rgbs, depths, wts, cfg: RasterConfig,
              mcfg: MappingConfig, height: int, width: int, tanfovx: float,
-             tanfovy: float, n_frames: int, mesh=None, map_axis=None):
+             tanfovy: float, n_frames: int, mesh=None, kf_axis="kf",
+             tile_axis="tile", map_axis=None, map_budget: int = 0):
     """One mapping gradient step over a window of ``n_frames`` keyframes
     (``views`` [K, 4, 4], ``rgbs`` [K, 3, H, W], ``depths`` [K, H, W]).
 
@@ -486,38 +557,148 @@ def map_step(model: GaussianModel, opt: MapOptimizer, dstate: DensifyState,
     (gau_u, gau_np))``: the loss before the step, the densification
     statistics updated with the screen-space gradient of the Gaussians
     visible in a live keyframe, and the window-summed per-Gaussian
-    uncertainty statistics.
+    uncertainty statistics (None with ``map_axis`` unless
+    ``mcfg.uncertainty_prune`` asks for them).
+
+    Distribution, driven by ``mesh`` (every rank calls with the same
+    inputs and ends with the same model): keyframes split over ``kf_axis``
+    (``sharded_value_and_grad``, the gradients all-reduced); tile-sharded
+    renders over ``tile_axis``; the map sharded over ``map_axis``, each
+    frame rendering the visible subset gathered from every rank's rows
+    and the gradients all-reduced over it (each row from its one rank);
+    keyframes x map composed in one step when both axes have more than
+    one rank (``sharded_kf_map_value_and_grad``).  With a map axis the
+    visibility proxy of the densification statistics is a nonzero screen
+    gradient, as in the JAX package.
     """
-    if mesh is not None or map_axis is not None:
-        raise NotImplementedError(
-            "meshed mapping (keyframe, tile or map sharding) is not ported: "
-            "map_step runs on one device")
+    check_mesh(mesh)
+    if map_axis is not None and mesh is None:
+        raise ValueError("map_axis shards the map over a mesh: pass mesh")
+    kf_sharded = has_axis(mesh, kf_axis)
+    map_sharded = map_axis is not None and has_axis(mesh, map_axis)
+    mk = _mesh_kw(mesh, tile_axis)
+    want_stats = mcfg.uncertainty_prune > 0
     opt.adam.zero_grad(set_to_none=True)
-    means2d = torch.zeros_like(model.means3D[:, :2].detach(),
-                               requires_grad=True)
-    total = 0.0
-    vis = gau_u = gau_np = None
-    for i in range(n_frames):
-        cam = Camera(viewmatrix=views[i], tanfovx=tanfovx, tanfovy=tanfovy,
-                     height=height, width=width)
-        out = render_model(model, cam, cfg, gt_depth=depths[i],
-                           means2D=means2d, track_off=True)
-        total = total + wts[i] * rgbd_loss(
-            out, Frame(rgbs[i], depths[i]), mcfg.w_color, mcfg.w_depth)
-        # window-summed per-Gaussian stats; padding frames excluded
-        live = wts[i] > 0
-        v_i = (out.radii > 0) & live
-        u_i = out.gau_uncertainty * live.to(out.gau_uncertainty.dtype)
-        n_i = out.gau_related_pixels * live.to(torch.int32)
-        vis = v_i if vis is None else vis | v_i
-        gau_u = u_i if gau_u is None else gau_u + u_i
-        gau_np = n_i if gau_np is None else gau_np + n_i
-    loss = total / torch.clamp_min(wts.sum(), 1e-9)
-    loss.backward()
+    params = model_params(model)
+    zeros2d = torch.zeros_like(model.means3D[:, :2].detach())
+
+    def cam_of(view):
+        return Camera(viewmatrix=view, tanfovx=tanfovx, tanfovy=tanfovy,
+                      height=height, width=width)
+
+    def frame_loss(out, wt, rgb, depth):
+        return wt * rgbd_loss(out, Frame(rgb, depth), mcfg.w_color,
+                              mcfg.w_depth)
+
+    if kf_sharded and map_sharded:
+        def loss_one_g(g, valid, view, rgb, depth, wt):
+            out = rasterize(g["means3D"], cam_of(view), cfg, gt_depth=depth,
+                            means2D=g["__means2d"], track_off=True,
+                            **_gathered(g, valid).raster_kwargs())
+            loss = frame_loss(out, wt, rgb, depth)
+            if not want_stats:
+                return loss
+            # stats of the gathered set; the wrapper routes them back to
+            # the map's rows; padding frames (wt == 0) excluded
+            live = wt > 0
+            return loss, (out.gau_uncertainty * live.to(torch.float32),
+                          out.gau_related_pixels * live.to(torch.int32))
+
+        vag = sharded.sharded_kf_map_value_and_grad(
+            loss_one_g, mesh, kf_axis, map_axis,
+            budget_per_shard=_map_budget(model, mesh, map_axis, map_budget),
+            near=cfg.near, gau_stats=want_stats)
+        res = vag({**params, "__means2d": zeros2d}, {"active": model.active},
+                  views, rgbs, depths, wts)
+        loss, grads = res[0], res[1]
+        gau_u, gau_np = res[3] if want_stats else (None, None)
+        g2d = grads.pop("__means2d")
+        visible = g2d.abs().sum(-1) > 0
+    elif kf_sharded:
+        def loss_one(p, view, rgb, depth, wt):
+            # no tile sharding inside the keyframe split: with a kf x tile
+            # mesh each rank renders its keyframes whole (as in the JAX
+            # package)
+            m = FieldModel(**{k: p[k] for k in PARAM_FIELDS},
+                           active=model.active)
+            out = rasterize(p["means3D"], cam_of(view), cfg, gt_depth=depth,
+                            means2D=p["__means2d"], track_off=True,
+                            **m.raster_kwargs())
+            # window-summed stats, padding frames (wt == 0) excluded, so
+            # pruning and densify decisions stay mesh-invariant
+            live = wt > 0
+            aux = ((out.radii > 0).to(torch.int32) * live.to(torch.int32),
+                   out.gau_uncertainty * live.to(torch.float32),
+                   out.gau_related_pixels * live.to(torch.int32))
+            return frame_loss(out, wt, rgb, depth), aux
+
+        vag = sharded.sharded_value_and_grad(
+            loss_one, mesh, kf_axis, has_aux=True, n_extra=1, weighted=True)
+        loss, grads, (vis, gau_u, gau_np) = vag(
+            {**params, "__means2d": zeros2d}, views, rgbs, depths, wts)
+        g2d = grads.pop("__means2d")
+        visible = vis > 0
+    else:
+        means2d = zeros2d.clone().requires_grad_(True)
+        total = 0.0
+        vis = gau_u = gau_np = None
+        for i in range(n_frames):
+            if map_axis is not None:
+                prm = {**params, "__means2d": means2d,
+                       "active": model.active}
+                g, valid, _, order = sharded.gather_visible(
+                    prm, views[i], mesh, map_axis,
+                    budget_per_shard=_map_budget(model, mesh, map_axis,
+                                                 map_budget),
+                    with_order=True)
+                means, m2d = g["means3D"], g["__means2d"]
+                kw = _gathered(g, valid).raster_kwargs()
+            else:
+                means, m2d, kw = model.means3D, means2d, model.raster_kwargs()
+            out = rasterize(means, cam_of(views[i]), cfg,
+                            gt_depth=depths[i], means2D=m2d, track_off=True,
+                            **kw, **mk)
+            total = total + frame_loss(out, wts[i], rgbs[i], depths[i])
+            # window-summed per-Gaussian stats; padding frames excluded
+            live = wts[i] > 0
+            u_i = out.gau_uncertainty * live.to(out.gau_uncertainty.dtype)
+            n_i = out.gau_related_pixels * live.to(torch.int32)
+            if map_axis is None:
+                v_i = (out.radii > 0) & live
+                vis = v_i if vis is None else vis | v_i
+            elif want_stats:
+                # stats of the gathered set, routed back to the map's rows
+                route = lambda st: sharded.scatter_gathered_stats(
+                    st, order, valid, mesh, map_axis,
+                    p_global=model.capacity)
+                u_i, n_i = route(u_i), route(n_i)
+            else:
+                u_i = n_i = None
+            if u_i is not None:
+                gau_u = u_i if gau_u is None else gau_u + u_i
+                gau_np = n_i if gau_np is None else gau_np + n_i
+        loss = total / torch.clamp_min(wts.sum(), 1e-9)
+        loss.backward()
+        loss = loss.detach()
+        g2d = means2d.grad
+        if map_axis is not None:
+            # each rank's gradient holds its own rows only: one all-reduce
+            # adds each row's one nonzero term to zeros
+            group = axis_group(mesh, map_axis)[0]
+            for v in params.values():
+                v.grad = all_reduce(v.grad, group)
+            g2d = all_reduce(g2d, group)
+            visible = g2d.abs().sum(-1) > 0
+        else:
+            visible = vis
+        grads = None
+    if grads is not None:
+        for k, v in params.items():
+            v.grad = grads[k]
     opt.step()
     # densification statistics: the screen-space (NDC) position gradient
-    dstate = dstate.update(means2d.grad, visible=vis)
-    return loss.detach(), dstate, (gau_u, gau_np)
+    dstate = dstate.update(g2d, visible=visible)
+    return loss, dstate, (gau_u, gau_np)
 
 
 def mapping_round(model: GaussianModel, opt: MapOptimizer,
@@ -534,20 +715,27 @@ def mapping_round(model: GaussianModel, opt: MapOptimizer,
     the last step's window-summed statistics prune by uncertainty at the
     end.  The model and ``opt`` are updated in place; returns
     ``(dstate, loss)`` with the last step's loss (None when ``iters`` is
-    0).
+    0).  With a mesh whose ``kf_axis`` has more than one rank, the window
+    is padded to a multiple of the axis with weight-0 copies of its last
+    keyframe (see :func:`map_step` for the rest of the distribution).
     """
-    if mesh is not None or map_axis is not None:
-        raise NotImplementedError(
-            "meshed mapping (keyframe, tile or map sharding) is not ported: "
-            "mapping_round runs on one device")
     views, rgbs, depths = keyframes
     n = views.shape[0]
     wts = torch.ones(n, dtype=views.dtype, device=views.device)
+    if has_axis(mesh, kf_axis):
+        pad = -n % axis_size(mesh, kf_axis)
+        if pad:
+            rep = lambda a: torch.cat([a] + [a[-1:]] * pad, 0)
+            views, rgbs, depths = rep(views), rep(rgbs), rep(depths)
+            wts = torch.cat([wts, wts.new_zeros(pad)])
+            n += pad
     loss = stats = noise = None
     for it in range(mcfg.iters):
         loss, dstate, stats = map_step(
             model, opt, dstate, views, rgbs, depths, wts, cfg, mcfg,
-            cam_t.height, cam_t.width, cam_t.tanfovx, cam_t.tanfovy, n)
+            cam_t.height, cam_t.width, cam_t.tanfovx, cam_t.tanfovy, n,
+            mesh=mesh, kf_axis=kf_axis, tile_axis=tile_axis,
+            map_axis=map_axis, map_budget=map_budget)
         if densify_every and (it + 1) % densify_every == 0:
             if noise is None:
                 noise = split_noise(generator, model.capacity // 8,
@@ -556,7 +744,8 @@ def mapping_round(model: GaussianModel, opt: MapOptimizer,
             dstate, _ = densify_and_prune(
                 model, dstate, grad_threshold=mcfg.densify_grad_threshold,
                 noise=noise)
-    if mcfg.uncertainty_prune > 0 and stats is not None:
+    if (mcfg.uncertainty_prune > 0 and stats is not None
+            and stats[0] is not None):
         prune_by_uncertainty(model, stats[0], stats[1],
                              mcfg.uncertainty_prune)
     return dstate, loss

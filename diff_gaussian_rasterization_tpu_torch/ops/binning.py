@@ -22,6 +22,11 @@ order) and, within one Gaussian, row-major over its tile rectangle.  When
 the true count exceeds ``max_instances``, the instances past the budget *in
 that enumeration order* are dropped: the tail of the highest-index
 Gaussians, whatever their depth.  Nothing is dropped by depth.
+
+``bin_gaussians_band`` bins only a band of tile rows, for sharded binning
+(``parallel/shard_bin.py``): each rank of a tile-sharded render bins its
+own band, with segments bit-identical to that band's slice of the
+full-grid binning.
 """
 
 from __future__ import annotations
@@ -46,16 +51,29 @@ class Binned(NamedTuple):
     gauss_stop: torch.Tensor   # (P,) int32 clipped to the budget
 
 
+# The JAX package aligns every tile's segment to its Pallas kernels' DMA
+# block of 128 instances.  The port's segments are unaligned; the constant
+# remains only so that ``parallel.shard_bin.default_cap_per_shard`` rounds
+# per-shard budgets as the JAX package does, and its budgets and overflow
+# flags match.
+INSTANCE_ALIGN = 128
+
+
 def bin_gaussians(prep: Preprocessed, tiles_x: int, tiles_y: int,
                   max_instances: int, tile_w: int = 0, tile_h: int = 0,
                   alpha_min: float = 15.0 / 255.0,
-                  margin_px: float = 0.0) -> Binned:
+                  margin_px: float = 0.0, row_offset: int = 0) -> Binned:
     """Bin splats into per-tile depth-sorted instance segments.
 
     ``tile_w``/``tile_h`` (pixels) enable the exact ellipse-tile overlap
     cull; 0 disables it (rectangle only).  ``alpha_min`` must match the
     blend's skip threshold for the cull to leave the image unchanged, and
     ``margin_px`` must match the margin that dilated the preprocess rects.
+    ``row_offset`` (tile rows) places the grid's first row in the image,
+    for a band whose rects were clipped and shifted to local rows
+    (:func:`bin_gaussians_band`): the cull then evaluates the splat at its
+    global pixel rows, adding the integer offset before the float
+    conversion, so the test is the full grid's bit for bit.
     See the module docstring for what overflow drops.
     """
     dev = prep.tiles_touched.device
@@ -98,7 +116,7 @@ def bin_gaussians(prep: Preprocessed, tiles_x: int, tiles_y: int,
         f32 = torch.float32
         dx0 = tx.to(f32) * tile_w - xy[:, 0] - margin_px
         dx1 = dx0 + (tile_w - 1) + 2.0 * margin_px
-        dy0 = ty.to(f32) * tile_h - xy[:, 1] - margin_px
+        dy0 = (ty + row_offset).to(f32) * tile_h - xy[:, 1] - margin_px
         dy1 = dy0 + (tile_h - 1) + 2.0 * margin_px
         inside = (dx0 <= 0) & (dx1 >= 0) & (dy0 <= 0) & (dy1 >= 0)
         safe_a = torch.clamp_min(ca, 1e-12)
@@ -150,6 +168,38 @@ def bin_gaussians(prep: Preprocessed, tiles_x: int, tiles_y: int,
         gauss_start=torch.clamp_max(starts, cap).to(torch.int32),
         gauss_stop=torch.clamp_max(ends, cap).to(torch.int32),
     )
+
+
+def bin_gaussians_band(prep: Preprocessed, tiles_x: int, band_y0: int,
+                       band_rows: int, max_instances: int, *,
+                       tile_w: int = 0, tile_h: int = 0,
+                       alpha_min: float = 15.0 / 255.0,
+                       margin_px: float = 0.0) -> Binned:
+    """Bin only the tiles in rows ``[band_y0, band_y0 + band_rows)``; local
+    tile ids span ``[0, band_rows * tiles_x)``.
+
+    Each tile's segment is bit-identical to its slice of the full-grid
+    :func:`bin_gaussians`: both enumerate instances Gaussian by Gaussian
+    and row-major within a splat's rect, so clipping the rect's rows to the
+    band keeps the relative order of every surviving instance, the stable
+    (tile, depth) sort sees the same keys, and the ellipse cull evaluates
+    at global pixel rows (``row_offset``).  The budget and the overflow
+    rule are the band's own.
+    """
+    rmin, rmax = prep.rect_min, prep.rect_max
+    y0 = torch.clamp(rmin[:, 1], band_y0, band_y0 + band_rows)
+    y1 = torch.clamp(rmax[:, 1], band_y0, band_y0 + band_rows)
+    rows = torch.clamp_min(y1 - y0, 0)
+    width = rmax[:, 0] - rmin[:, 0]
+    tt = torch.where(prep.tiles_touched > 0, rows * width,
+                     torch.zeros_like(rows)).to(prep.tiles_touched.dtype)
+    band = prep._replace(
+        tiles_touched=tt,
+        rect_min=torch.stack([rmin[:, 0], y0 - band_y0], -1).to(
+            rmin.dtype))
+    return bin_gaussians(band, tiles_x, band_rows, max_instances,
+                         tile_w=tile_w, tile_h=tile_h, alpha_min=alpha_min,
+                         margin_px=margin_px, row_offset=band_y0)
 
 
 def default_max_instances(p: int, multiplier: int) -> int:

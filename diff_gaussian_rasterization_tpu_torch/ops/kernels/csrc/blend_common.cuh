@@ -23,6 +23,9 @@ constexpr int kFeat = 11;      // floats per instance row:
 struct Params {
   int tiles_x, tile_w, tile_h, width, height;
   float alpha_cap, alpha_min, t_terminate;
+  int tile0;  // global index of the launch's first tile: block t renders
+              // tile tile0 + t of the image (its pixel origin); every
+              // tile-major array of the launch is indexed by t
 };
 
 constexpr int kFeatPad = 12;   // floats of a feature row staged in shared

@@ -194,8 +194,9 @@ render_bwd_kernel(const float* __restrict__ feat,
   const int seg = tile_stop[t] - start;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int tx0 = (t % prm.tiles_x) * prm.tile_w;
-  const int ty0 = (t / prm.tiles_x) * prm.tile_h;
+  const int tg = prm.tile0 + t;  // the tile's index in the image
+  const int tx0 = (tg % prm.tiles_x) * prm.tile_w;
+  const int ty0 = (tg / prm.tiles_x) * prm.tile_h;
 
   // per pixel: its walk limit (segment-local; 0: no pixel, or the pixel
   // has ended), position, transmittance, prefix and constants
@@ -560,13 +561,14 @@ void launch_rows(const float* rows, const int* inv, const int* gauss_start,
 extern "C" int render_bwd(const float* feat, const int* tile_start,
                           const int* tile_stop, const float* pix,
                           const int* n_contrib, long long ncon_stride,
-                          float* rows, int n_tiles, int tiles_x, int tile_w,
-                          int tile_h, int width, int height, float alpha_cap,
+                          float* rows, int n_tiles, int tiles_x, int tile0,
+                          int tile_w, int tile_h, int width, int height,
+                          float alpha_cap,
                           float alpha_min, float t_terminate, int want_med,
                           int want_var, unsigned long long* pairs,
                           void* stream) {
   const Params prm{tiles_x, tile_w, tile_h, width, height,
-                   alpha_cap, alpha_min, t_terminate};
+                   alpha_cap, alpha_min, t_terminate, tile0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_tiles <= 0) return 0;
   switch (pixels_per_thread(tile_w * tile_h)) {

@@ -157,8 +157,9 @@ render_fwd_kernel(const float* __restrict__ feat,
   const int stop = tile_stop[t];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int tx0 = (t % prm.tiles_x) * prm.tile_w;
-  const int ty0 = (t / prm.tiles_x) * prm.tile_h;
+  const int tg = prm.tile0 + t;  // the tile's index in the image
+  const int tx0 = (tg % prm.tiles_x) * prm.tile_w;
+  const int ty0 = (tg / prm.tiles_x) * prm.tile_h;
 
   // per pixel its position and blend state; bit k of `live`: pixel k lies
   // in the tile and the image and has not terminated.  dep is also the
@@ -527,12 +528,13 @@ __global__ void segment_sum_kernel(const float* __restrict__ vals,
 // pairs may be null.
 extern "C" int render_fwd(const float* feat, const int* tile_start,
                           const int* tile_stop, const float* gt, float* out_f,
-                          int* out_i, int n_tiles, int tiles_x, int tile_w,
-                          int tile_h, int width, int height, float alpha_cap,
+                          int* out_i, int n_tiles, int tiles_x, int tile0,
+                          int tile_w, int tile_h, int width, int height,
+                          float alpha_cap,
                           float alpha_min, float t_terminate,
                           unsigned long long* pairs, void* stream) {
   const Params prm{tiles_x, tile_w, tile_h, width, height,
-                   alpha_cap, alpha_min, t_terminate};
+                   alpha_cap, alpha_min, t_terminate, tile0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_tiles <= 0) return 0;
   switch (pixels_per_thread(tile_w * tile_h)) {

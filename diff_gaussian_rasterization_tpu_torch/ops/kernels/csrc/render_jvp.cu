@@ -182,8 +182,9 @@ render_jvp_kernel(const float* __restrict__ feat,
   const float* tan_g = tan + grp.k0 * PER_K;
 
   const int qi = tile_pixel(prm);
-  const int pxi = (t % prm.tiles_x) * prm.tile_w + qi % prm.tile_w;
-  const int pyi = (t / prm.tiles_x) * prm.tile_h + qi / prm.tile_w;
+  const int tg = prm.tile0 + t;  // the tile's index in the image
+  const int pxi = (tg % prm.tiles_x) * prm.tile_w + qi % prm.tile_w;
+  const int pyi = (tg / prm.tiles_x) * prm.tile_h + qi / prm.tile_w;
   bool done = !(qi < q && pxi < prm.width && pyi < prm.height);
   const float px = (float)pxi;
   const float py = (float)pyi;
@@ -415,8 +416,9 @@ cudaError_t launch_k(int k, const Launch& a) {
 extern "C" int render_jvp(const float* feat, const float* tan,
                           const int* tile_start, const int* tile_stop,
                           const float* gt, float* out_f, int* out_i,
-                          float* out_t, int n_tiles, int tiles_x, int tile_w,
-                          int tile_h, int width, int height, float alpha_cap,
+                          float* out_t, int n_tiles, int tiles_x, int tile0,
+                          int tile_w, int tile_h, int width, int height,
+                          float alpha_cap,
                           float alpha_min, float t_terminate, int k,
                           int per_k, int k0, int k_total, int write_primal,
                           unsigned long long* pairs, void* stream) {
@@ -430,7 +432,7 @@ extern "C" int render_jvp(const float* feat, const float* tan,
                  static_cast<cudaStream_t>(stream), feat, tan, tile_start,
                  tile_stop, gt, out_f, out_i, out_t,
                  Params{tiles_x, tile_w, tile_h, width, height, alpha_cap,
-                        alpha_min, t_terminate},
+                        alpha_min, t_terminate, tile0},
                  Group{per_k * k_total, k0, k_total, write_primal}, pairs};
   if (per_k == 3) return static_cast<int>(launch_k<3>(k, a));
   if (per_k == 6) return static_cast<int>(launch_k<6>(k, a));

@@ -118,9 +118,10 @@ class PoseTangents(NamedTuple):
 
 
 def pixel_coords(n_tiles: int, tiles_x: int, th: int, tw: int, height: int,
-                 width: int, device):
-    """px, py [T, Q] float32 pixel coordinates and the in-image mask."""
-    t = torch.arange(n_tiles, device=device)[:, None]
+                 width: int, device, tile0: int = 0):
+    """px, py [T, Q] float32 pixel coordinates and the in-image mask of the
+    image's tiles ``tile0 .. tile0 + n_tiles - 1``."""
+    t = tile0 + torch.arange(n_tiles, device=device)[:, None]
     q = torch.arange(th * tw, device=device)[None, :]
     pxi = (t % tiles_x) * tw + q % tw
     pyi = (t // tiles_x) * th + q // tw
@@ -266,19 +267,21 @@ def tile_scatter_sum(midx, ucross, tile_start, tile_stop, n_inst: int):
 
 def core_fwd_pixels_reference(table, tile_start, tile_stop, gt_tiles, *,
                               cfg: RasterConfig, tiles_x: int, height: int,
-                              width: int):
+                              width: int, tile0: int = 0):
     """The per-pixel half of :func:`core_fwd_reference`: its first nine
     outputs (color through midx) and the per-pixel ``ucross`` [T, Q], the
     median crossing's depth moment that ``u_inst`` sums.  Tiles in batches
     of ``TILE_BATCH``, each batch's segments padded and blended
     ``cfg.chunk`` instances at a time with :func:`blend.blend_chunk_fwd`; a
-    batch stops once every in-image pixel has terminated."""
+    batch stops once every in-image pixel has terminated.  ``tile0`` is the
+    image index of the first tile of the arrays (see :func:`core_fwd`)."""
     dev = table.device
     n_inst = table.shape[0]
     t_all = tile_start.shape[0]
     g = max(1, min(cfg.chunk, n_inst))
     px_all, py_all, mask_all = pixel_coords(t_all, tiles_x, cfg.tile_h,
-                                            cfg.tile_w, height, width, dev)
+                                            cfg.tile_w, height, width, dev,
+                                            tile0)
     ar = torch.arange(g, device=dev)
     outs = []
     for b0 in range(0, t_all, TILE_BATCH):
@@ -309,12 +312,12 @@ def core_fwd_pixels_reference(table, tile_start, tile_stop, gt_tiles, *,
 
 def core_fwd_reference(table, tile_start, tile_stop, gt_tiles, *,
                        cfg: RasterConfig, tiles_x: int, height: int,
-                       width: int) -> CoreOutputs:
+                       width: int, tile0: int = 0) -> CoreOutputs:
     """Plain PyTorch render core: :func:`core_fwd_pixels_reference`, then
     :func:`tile_scatter_sum_reference` of its ``(midx, ucross)``."""
     pixels, ucross = core_fwd_pixels_reference(
         table, tile_start, tile_stop, gt_tiles, cfg=cfg, tiles_x=tiles_x,
-        height=height, width=width)
+        height=height, width=width, tile0=tile0)
     u_inst, npix_inst = tile_scatter_sum_reference(
         pixels[8], ucross, tile_start, tile_stop, table.shape[0])
     return CoreOutputs(*pixels, u_inst, npix_inst)
@@ -323,7 +326,7 @@ def core_fwd_reference(table, tile_start, tile_stop, gt_tiles, *,
 def core_bwd_reference(table, tile_start, tile_stop, pix, *,
                        cfg: RasterConfig, tiles_x: int, height: int,
                        width: int, want_med: bool = True,
-                       want_var: bool = True):
+                       want_var: bool = True, tile0: int = 0):
     """Plain PyTorch backward core: the forward's batching and chunking,
     each chunk through :func:`blend.blend_chunk_bwd`; returns the gradient
     rows [I, 12] (zeros where no pixel walked the instance).  ``pix`` is
@@ -333,7 +336,8 @@ def core_bwd_reference(table, tile_start, tile_stop, pix, *,
     t_all = tile_start.shape[0]
     g = max(1, min(cfg.chunk, n_inst))
     px_all, py_all, mask_all = pixel_coords(t_all, tiles_x, cfg.tile_h,
-                                            cfg.tile_w, height, width, dev)
+                                            cfg.tile_w, height, width, dev,
+                                            tile0)
     ar = torch.arange(g, device=dev)
     rows = torch.zeros((n_inst, ROW), dtype=table.dtype, device=dev)
     for b0 in range(0, t_all, TILE_BATCH):
@@ -391,7 +395,7 @@ def _check_core_inputs(table, tile_start, tile_stop, gt_tiles,
 
 def launch_render_fwd(table, tile_start, tile_stop, gt_tiles, out_f, out_i,
                       *, cfg: RasterConfig, tiles_x: int, height: int,
-                      width: int, pairs=None):
+                      width: int, pairs=None, tile0: int = 0):
     """One launch of the ``render_fwd`` kernel into preallocated
     ``out_f`` [T, 9, Q] float32 and ``out_i`` [T, 3, Q] int32 (inputs
     checked by :func:`core_fwd`).  ``pairs``, a CUDA int64 [1] tensor, if
@@ -404,28 +408,34 @@ def launch_render_fwd(table, tile_start, tile_stop, gt_tiles, out_f, out_i,
         rc = load("render_fwd").render_fwd(
             table.data_ptr(), tile_start.data_ptr(), tile_stop.data_ptr(),
             gt_tiles.data_ptr(), out_f.data_ptr(), out_i.data_ptr(),
-            tile_start.shape[0], tiles_x, cfg.tile_w, cfg.tile_h, width,
-            height, cfg.alpha_cap, cfg.alpha_min, cfg.t_terminate, pairs_ptr,
-            stream)
+            tile_start.shape[0], tiles_x, tile0, cfg.tile_w, cfg.tile_h,
+            width, height, cfg.alpha_cap, cfg.alpha_min, cfg.t_terminate,
+            pairs_ptr, stream)
     if rc != 0:
         raise RuntimeError(f"render_fwd launch failed: CUDA error {rc}")
     launches["render_fwd"] += 1
 
 
 def core_fwd(table, tile_start, tile_stop, gt_tiles, *, cfg: RasterConfig,
-             tiles_x: int, height: int, width: int) -> CoreOutputs:
+             tiles_x: int, height: int, width: int,
+             tile0: int = 0) -> CoreOutputs:
     """The render core: the ``render_fwd`` kernel on CUDA tensors, the plain
-    version on CPU tensors.  See the module docstring for the layout."""
+    version on CPU tensors.  See the module docstring for the layout.
+
+    The tile-major arrays may cover a contiguous run of the image's tiles,
+    ``tile0 .. tile0 + T - 1`` (a rank's share of a tile-sharded render):
+    ``tile0`` places their pixels in the image, and nothing else changes."""
     if table.device.type == "cpu":
         return core_fwd_reference(table, tile_start, tile_stop, gt_tiles,
                                   cfg=cfg, tiles_x=tiles_x, height=height,
-                                  width=width)
+                                  width=width, tile0=tile0)
     _check_core_inputs(table, tile_start, tile_stop, gt_tiles, cfg)
     n_tiles, q, dev = tile_start.shape[0], cfg.tile_px, table.device
     out_f = torch.empty((n_tiles, 9, q), dtype=torch.float32, device=dev)
     out_i = torch.empty((n_tiles, 3, q), dtype=torch.int32, device=dev)
     launch_render_fwd(table, tile_start, tile_stop, gt_tiles, out_f, out_i,
-                      cfg=cfg, tiles_x=tiles_x, height=height, width=width)
+                      cfg=cfg, tiles_x=tiles_x, height=height, width=width,
+                      tile0=tile0)
     midx = out_i[:, 2]
     u_inst, npix_inst = tile_scatter_sum(midx, out_f[:, 8], tile_start,
                                          tile_stop, table.shape[0])
@@ -484,7 +494,8 @@ def bwd_pixel_map(tile_h: int, tile_w: int, device="cpu"):
 def launch_render_bwd(table, tile_start, tile_stop, pix, rows, *,
                       cfg: RasterConfig, tiles_x: int, height: int,
                       width: int, want_med: bool = True,
-                      want_var: bool = True, n_contrib, pairs=None):
+                      want_var: bool = True, n_contrib, pairs=None,
+                      tile0: int = 0):
     """One launch of the ``render_bwd`` kernel into ``rows`` [I, 12], which
     the caller zero-fills (inputs checked by :func:`core_bwd`).
     ``n_contrib`` [T, Q] int32 (unit pixel stride; the forward's
@@ -501,8 +512,8 @@ def launch_render_bwd(table, tile_start, tile_stop, pix, rows, *,
             table.data_ptr(), tile_start.data_ptr(), tile_stop.data_ptr(),
             pix.data_ptr(), n_contrib.data_ptr(), n_contrib.stride(0),
             rows.data_ptr(),
-            tile_start.shape[0], tiles_x, cfg.tile_w, cfg.tile_h, width,
-            height, cfg.alpha_cap, cfg.alpha_min, cfg.t_terminate,
+            tile_start.shape[0], tiles_x, tile0, cfg.tile_w, cfg.tile_h,
+            width, height, cfg.alpha_cap, cfg.alpha_min, cfg.t_terminate,
             int(want_med), int(want_var), pairs_ptr, stream)
     if rc != 0:
         raise RuntimeError(f"render_bwd launch failed: CUDA error {rc}")
@@ -511,7 +522,8 @@ def launch_render_bwd(table, tile_start, tile_stop, pix, rows, *,
 
 def core_bwd(table, tile_start, tile_stop, gt_tiles, totals, cots, *,
              cfg: RasterConfig, tiles_x: int, height: int, width: int,
-             want_med: bool = True, want_var: bool = True, n_contrib):
+             want_med: bool = True, want_var: bool = True, n_contrib,
+             tile0: int = 0):
     """The backward core: gradient rows [I, 12] at sorted positions.
 
     ``totals`` are the forward's (color [T, 3, Q], depth, weight, var,
@@ -520,10 +532,10 @@ def core_bwd(table, tile_start, tile_stop, gt_tiles, totals, cots, *,
     lets the kernel stop each pixel after its last contributor, which
     changes no row.  The ``render_bwd`` kernel on CUDA tensors,
     :func:`core_bwd_reference` (which needs no ``n_contrib``) on CPU
-    tensors."""
+    tensors.  ``tile0`` as in :func:`core_fwd`."""
     pix = blend.bwd_pixel_inputs(gt_tiles, *totals, *cots).contiguous()
     kw = dict(cfg=cfg, tiles_x=tiles_x, height=height, width=width,
-              want_med=want_med, want_var=want_var)
+              want_med=want_med, want_var=want_var, tile0=tile0)
     if table.device.type == "cpu":
         return core_bwd_reference(table, tile_start, tile_stop, pix, **kw)
     _check_cuda(table, torch.float32, "table")
@@ -570,7 +582,7 @@ def _tangent_count(tans, full: bool) -> int:
 
 def core_fwd_jvp_reference(table, tans, tile_start, tile_stop, gt_tiles, *,
                            cfg: RasterConfig, tiles_x: int, height: int,
-                           width: int, full: bool = False):
+                           width: int, full: bool = False, tile0: int = 0):
     """Plain PyTorch dual render core: :func:`core_fwd_reference`'s tile
     batches, chunks and termination, each chunk through
     :func:`blend.blend_chunk_fwd_jvp`.  ``tans`` [I, per_k * K] holds per
@@ -583,7 +595,8 @@ def core_fwd_jvp_reference(table, tans, tile_start, tile_stop, gt_tiles, *,
     per_k = 6 if full else 3
     g = max(1, min(cfg.chunk, n_inst))
     px_all, py_all, mask_all = pixel_coords(t_all, tiles_x, cfg.tile_h,
-                                            cfg.tile_w, height, width, dev)
+                                            cfg.tile_w, height, width, dev,
+                                            tile0)
     ar = torch.arange(g, device=dev)
     outs = []
     for b0 in range(0, t_all, TILE_BATCH):
@@ -680,7 +693,7 @@ def cull_boxes(table, alpha_min: float):
 def launch_render_jvp(table, tans, tile_start, tile_stop, gt_tiles, out_f,
                       out_i, out_t, *, cfg: RasterConfig, tiles_x: int,
                       height: int, width: int, full: bool = False,
-                      pairs=None):
+                      pairs=None, tile0: int = 0):
     """The ``render_jvp`` kernel into preallocated ``out_f`` [T, 9, Q],
     ``out_i`` [T, 3, Q] (both as ``render_fwd`` writes them) and ``out_t``
     [T, K, 6, Q] (inputs checked by :func:`core_fwd_jvp`): one launch per
@@ -698,7 +711,7 @@ def launch_render_jvp(table, tans, tile_start, tile_stop, gt_tiles, out_f,
                 table.data_ptr(), tans.data_ptr(), tile_start.data_ptr(),
                 tile_stop.data_ptr(), gt_tiles.data_ptr(), out_f.data_ptr(),
                 out_i.data_ptr(), out_t.data_ptr(), tile_start.shape[0],
-                tiles_x, cfg.tile_w, cfg.tile_h, width, height,
+                tiles_x, tile0, cfg.tile_w, cfg.tile_h, width, height,
                 cfg.alpha_cap, cfg.alpha_min, cfg.t_terminate,
                 min(JVP_GROUP, k_total - k0), per_k, k0, k_total,
                 int(k0 == 0), pairs_ptr, stream)
@@ -710,13 +723,14 @@ def launch_render_jvp(table, tans, tile_start, tile_stop, gt_tiles, out_f,
 
 def core_fwd_jvp(table, tans, tile_start, tile_stop, gt_tiles, *,
                  cfg: RasterConfig, tiles_x: int, height: int, width: int,
-                 full: bool = False):
+                 full: bool = False, tile0: int = 0):
     """The dual render core, (CoreOutputs, PoseTangents): the ``render_jvp``
     kernel on CUDA tensors, :func:`core_fwd_jvp_reference` on CPU tensors.
     ``tans`` is the sorted tangent table [I, per_k * K] (per_k 3, or 6 when
-    ``full``), gathered by the same rows as ``table``."""
+    ``full``), gathered by the same rows as ``table``; ``tile0`` as in
+    :func:`core_fwd`."""
     kw = dict(cfg=cfg, tiles_x=tiles_x, height=height, width=width,
-              full=full)
+              full=full, tile0=tile0)
     if table.device.type == "cpu":
         return core_fwd_jvp_reference(table, tans, tile_start, tile_stop,
                                       gt_tiles, **kw)

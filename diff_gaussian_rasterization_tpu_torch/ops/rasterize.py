@@ -28,6 +28,12 @@ Gauss-Newton tracking: one dual render gives the image and its derivatives
 along K view-matrix directions (the ``render_jvp`` kernel on the card).
 ``bin_for_view`` computes a binning once so that later renders at nearby
 poses reuse it (``binn=``).
+
+With ``mesh=`` (a ``torch.distributed`` DeviceMesh) both renders shard the
+tile grid over ``tile_axis`` (``parallel/sharded.py``): every rank calls
+with the same inputs, renders its run of tiles, and gets back the whole
+render, bit-equal to the unsharded one, gradients included.
+``shard_binning=True`` also shards the binning (``parallel/shard_bin.py``).
 """
 
 from __future__ import annotations
@@ -38,6 +44,8 @@ import torch
 
 from ..camera import Camera
 from ..config import RasterConfig
+from ..parallel import shard_bin, sharded
+from ..parallel.mesh import axis_size, check_mesh
 from .binning import Binned, bin_gaussians, default_max_instances
 from .kernels.render import (FEAT, CoreOutputs, core_bwd, core_fwd,
                              core_fwd_jvp)
@@ -61,20 +69,27 @@ class _RenderCore(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, feat, gauss_sorted, tile_start, tile_stop, gt_tiles,
-                inv, gauss_start, gauss_stop, cfg, tiles_x, height, width):
+                inv, gauss_start, gauss_stop, cfg, tiles_x, height, width,
+                shard):
         table = feat[gauss_sorted].contiguous()            # [cap, 11]
-        out = core_fwd(table, tile_start, tile_stop, gt_tiles, cfg=cfg,
-                       tiles_x=tiles_x, height=height, width=width)
+        core_kw = dict(cfg=cfg, tiles_x=tiles_x, height=height, width=width)
+        if shard is None:
+            out = local = core_fwd(table, tile_start, tile_stop, gt_tiles,
+                                   **core_kw)
+        else:
+            out, local = sharded.core_fwd_sharded(
+                table, tile_start, tile_stop, gt_tiles, shard, **core_kw)
         ctx.mark_non_differentiable(out.n_contrib, out.n_valid, out.midx,
                                     out.npix_inst)
         ctx.set_materialize_grads(False)
         # out.var is the true variance, before any ref_depth_var zeroing;
-        # n_contrib stops the backward's pixels at their last contributor
+        # n_contrib stops the backward's pixels at their last contributor.
+        # A tile-sharded render keeps this rank's tiles for its backward.
         ctx.save_for_backward(table, tile_start, tile_stop, gt_tiles,
-                              out.color, out.depth, out.weight, out.var,
-                              out.t_final, out.n_contrib, inv, gauss_start,
-                              gauss_stop)
-        ctx.geometry = (cfg, tiles_x, height, width)
+                              local.color, local.depth, local.weight,
+                              local.var, local.t_final, local.n_contrib, inv,
+                              gauss_start, gauss_stop)
+        ctx.geometry = (core_kw, shard)
         return tuple(out)
 
     @staticmethod
@@ -82,22 +97,30 @@ class _RenderCore(torch.autograd.Function):
                  *_unused):
         (table, tile_start, tile_stop, gt_tiles, color, depth, weight, var,
          t_final, n_contrib, inv, gauss_start, gauss_stop) = ctx.saved_tensors
-        cfg, tiles_x, height, width = ctx.geometry
+        core_kw, shard = ctx.geometry
         cots = (d_color, d_depth, d_weight, d_var, d_median, d_tfinal)
-        nones = (None,) * 11
+        nones = (None,) * 12
         if all(c is None for c in cots):
             return (None,) + nones
-        zero = lambda c, like: torch.zeros_like(like) if c is None \
-            else c.contiguous()
-        rows = core_bwd(
-            table, tile_start, tile_stop, gt_tiles,
-            (color, depth, weight, var, t_final),
-            (zero(d_color, color), zero(d_depth, depth),
-             zero(d_weight, weight), zero(d_var, var),
-             zero(d_median, depth), zero(d_tfinal, t_final)),
-            cfg=cfg, tiles_x=tiles_x, height=height, width=width,
-            want_med=d_median is not None, want_var=d_var is not None,
-            n_contrib=n_contrib)
+        # a missing cotangent is a zero of the global (tile-sharded: of
+        # this rank's slice) shape, which its totals have here
+        t = tile_start.shape[0]
+        zero = lambda c, like: torch.zeros(
+            (t,) + tuple(like.shape[1:]), dtype=like.dtype,
+            device=like.device) if c is None else c.contiguous()
+        cots = (zero(d_color, color), zero(d_depth, depth),
+                zero(d_weight, weight), zero(d_var, var),
+                zero(d_median, depth), zero(d_tfinal, t_final))
+        kw = dict(want_med=d_median is not None, want_var=d_var is not None,
+                  n_contrib=n_contrib, **core_kw)
+        totals = (color, depth, weight, var, t_final)
+        if shard is None:
+            rows = core_bwd(table, tile_start, tile_stop, gt_tiles, totals,
+                            cots, **kw)
+        else:
+            rows = sharded.core_bwd_sharded(table, tile_start, tile_stop,
+                                            gt_tiles, totals, cots, shard,
+                                            **kw)
         g = segment_sum_rows(rows, inv, gauss_start, gauss_stop)  # [P, 12]
         # the median and variance rows both belong to depth_sgview
         d_feat = torch.cat([g[:, :10], (g[:, 10] + g[:, 11])[:, None]], 1)
@@ -164,17 +187,35 @@ def prepare(means3D, camera: Camera, cfg: RasterConfig, max_instances: int,
     prep = preprocess(means3D, camera, cfg, **prep_kw)
     if binn is None:
         binn = _bin(prep, camera, cfg, max_instances)
-    feat = torch.cat(
+    gt_tiles = img_to_tiles(gt_depth, cfg.tile_h, cfg.tile_w).contiguous()
+    return prep, binn, _feature_table(prep), gt_tiles
+
+
+def _feature_table(prep):
+    """The per-Gaussian feature table [P, 11] the render core gathers."""
+    return torch.cat(
         [prep.xy, prep.conic, prep.opacity[:, None], prep.color,
          prep.depth[:, None], prep.depth_sgview[:, None]], dim=1)
-    gt_tiles = img_to_tiles(gt_depth, cfg.tile_h, cfg.tile_w).contiguous()
-    return prep, binn, feat, gt_tiles
 
 
-def _outputs(out: CoreOutputs, prep, binn: Binned, bg, cfg: RasterConfig,
-             h: int, w: int) -> RenderOutputs:
-    """Image assembly: the background composite, tile -> image layout, and
-    the deterministic per-Gaussian uncertainty sums."""
+def _gaussian_sums(out: CoreOutputs, binn: Binned) -> CoreOutputs:
+    """``out`` with ``u_inst`` / ``npix_inst`` summed per Gaussian [P]:
+    each Gaussian's instances over its pre-sort run, in run order (the
+    order of their sorted positions too: one Gaussian's instances sort by
+    tile), culled instances adding zeros.  The pixel counts ride along as
+    floats, exact below 2**24."""
+    stats = torch.stack([out.u_inst.detach(),
+                         out.npix_inst.to(out.u_inst.dtype)], 1)
+    gau = segment_sum_rows(stats, binn.inv, binn.gauss_start,
+                           binn.gauss_stop)
+    return out._replace(u_inst=gau[:, 0], npix_inst=gau[:, 1].to(torch.int32))
+
+
+def _outputs(out: CoreOutputs, prep, num_rendered, overflow, bg,
+             cfg: RasterConfig, h: int, w: int) -> RenderOutputs:
+    """Image assembly: the background composite and tile -> image layout;
+    ``out``'s ``u_inst`` / ``npix_inst`` are per Gaussian
+    (:func:`_gaussian_sums`)."""
     color_tiles = out.color + out.t_final[:, None, :] * bg[None, :, None]
     color_img = tiles_to_img(color_tiles.movedim(1, 0), h, w, cfg.tile_h,
                              cfg.tile_w)
@@ -186,16 +227,6 @@ def _outputs(out: CoreOutputs, prep, binn: Binned, bg, cfg: RasterConfig,
         # variance's, like the reference backward
         var_tiles = var_tiles - var_tiles.detach()
 
-    # each Gaussian's instances summed over its pre-sort run, in run order:
-    # the order of their sorted positions too (one Gaussian's instances
-    # sort by tile), and culled instances add zeros.  The pixel counts ride
-    # along as floats, exact below 2**24.
-    stats = torch.stack([out.u_inst.detach(),
-                         out.npix_inst.to(out.u_inst.dtype)], 1)
-    gau = segment_sum_rows(stats, binn.inv, binn.gauss_start,
-                           binn.gauss_stop)
-    gau_u, gau_npix = gau[:, 0], gau[:, 1].to(torch.int32)
-
     return RenderOutputs(
         color=color_img,
         radii=prep.radius,
@@ -203,12 +234,12 @@ def _outputs(out: CoreOutputs, prep, binn: Binned, bg, cfg: RasterConfig,
         depth_median=to_img(out.median)[None],
         depth_var=to_img(var_tiles)[None],
         opacity_map=to_img(out.weight)[None],
-        gau_uncertainty=gau_u[:, None],
-        gau_related_pixels=gau_npix[:, None],
+        gau_uncertainty=out.u_inst.detach()[:, None],
+        gau_related_pixels=out.npix_inst[:, None],
         n_contrib=to_img(out.n_contrib),
         n_valid=to_img(out.n_valid),
-        num_rendered=binn.num_rendered,
-        overflow=binn.overflow,
+        num_rendered=num_rendered,
+        overflow=overflow,
     )
 
 
@@ -233,7 +264,9 @@ def rasterize(means3D, camera: Camera, cfg: RasterConfig = None, *,
               shs=None, sh_degree: int = 0, colors_precomp=None,
               scale_modifier: float = 1.0, bg=None, gt_depth=None,
               means2D=None, track_off: bool = False, map_off: bool = False,
-              max_instances=None, binn: Binned = None) -> RenderOutputs:
+              max_instances=None, binn: Binned = None, mesh=None,
+              tile_axis: str = "tile", shard_binning: bool = False,
+              max_instances_per_shard: int = None) -> RenderOutputs:
     """Render Gaussians; differentiable w.r.t. every Gaussian parameter,
     ``means2D`` and the view matrix.
 
@@ -249,9 +282,24 @@ def rasterize(means3D, camera: Camera, cfg: RasterConfig = None, *,
     while the binning pose's footprints (widened by its margin) cover this
     call's; the blend's per-pair test skips instances that no longer reach
     a pixel, so at the binning pose the render is the fresh one's.
+
+    ``mesh`` (a ``torch.distributed`` DeviceMesh; every rank calls with the
+    same inputs): the tile grid is sharded over ``tile_axis``, each rank
+    renders its run of tiles, and every rank gets the whole render and
+    gradients, bit-equal to the unsharded ones.  ``shard_binning`` (with
+    ``mesh``): each rank also bins only its band of tile rows
+    (``parallel.shard_bin``), under ``max_instances_per_shard`` instances
+    (default ``shard_bin.default_cap_per_shard``; size it from
+    ``shard_bin.band_instance_counts``); ``overflow`` is then any shard's.
     """
     cfg = RasterConfig() if cfg is None else cfg
     _check_direct(cfg)
+    check_mesh(mesh)
+    if mesh is not None and shard_binning and binn is not None:
+        raise ValueError(
+            "shard_binning bins on each rank for its own band; a "
+            "precomputed single-device binning cannot be reused: drop "
+            "binn= or shard_binning")
     h, w = camera.height, camera.width
     bg, gt_depth = _defaults(means3D, h, w, bg, gt_depth)
 
@@ -269,17 +317,44 @@ def rasterize(means3D, camera: Camera, cfg: RasterConfig = None, *,
     if max_instances is None:
         max_instances = cfg.max_instances or default_max_instances(
             p, cfg.instance_multiplier)
-    prep, binn, feat, gt_tiles = prepare(
-        means3D, camera, cfg, max_instances, gt_depth, binn=binn,
+    prep_kw = dict(
         opacities=opacities, scales=scales, rotations=rotations,
         cov3D_precomp=cov3D_precomp, shs=shs, sh_degree=sh_degree,
         colors_precomp=colors_precomp, scale_modifier=scale_modifier,
         means2D=means2D)
-    tiles_x, _ = grid_dims(h, w, cfg.tile_h, cfg.tile_w)
+    tiles_x, tiles_y = grid_dims(h, w, cfg.tile_h, cfg.tile_w)
+    if mesh is not None and shard_binning:
+        return _shard_binned(means3D, camera, cfg, mesh, tile_axis,
+                             max_instances, max_instances_per_shard, bg,
+                             gt_depth, prep_kw)
+    prep, binn, feat, gt_tiles = prepare(
+        means3D, camera, cfg, max_instances, gt_depth, binn=binn, **prep_kw)
+    shard = None if mesh is None else sharded.tile_shard(mesh, tile_axis)
     out = CoreOutputs(*_RenderCore.apply(
         feat, binn.gauss_id, binn.tile_start, binn.tile_stop, gt_tiles,
-        binn.inv, binn.gauss_start, binn.gauss_stop, cfg, tiles_x, h, w))
-    return _outputs(out, prep, binn, bg, cfg, h, w)
+        binn.inv, binn.gauss_start, binn.gauss_stop, cfg, tiles_x, h, w,
+        shard))
+    return _outputs(_gaussian_sums(out, binn), prep, binn.num_rendered,
+                    binn.overflow, bg, cfg, h, w)
+
+
+def _shard_binned(means3D, camera: Camera, cfg: RasterConfig, mesh,
+                  tile_axis: str, max_instances: int, cap_per_shard, bg,
+                  gt_depth, prep_kw) -> RenderOutputs:
+    """``rasterize`` with the binning sharded over ``tile_axis``."""
+    h, w = camera.height, camera.width
+    tiles_x, tiles_y = grid_dims(h, w, cfg.tile_h, cfg.tile_w)
+    if cap_per_shard is None:
+        cap_per_shard = shard_bin.default_cap_per_shard(
+            max_instances, axis_size(mesh, tile_axis))
+    prep = preprocess(means3D, camera, cfg, **prep_kw)
+    gt_tiles = img_to_tiles(gt_depth, cfg.tile_h, cfg.tile_w).contiguous()
+    sb = shard_bin.make_shard_binned_core(
+        mesh, tile_axis, prep, gt_tiles, cfg=cfg, tiles_x=tiles_x,
+        tiles_y=tiles_y, cap_per_shard=cap_per_shard, height=h,
+        width=w)(_feature_table(prep))
+    return _outputs(sb.core, prep, sb.num_rendered, sb.overflow, bg, cfg, h,
+                    w)
 
 
 class PoseJvpOutputs(NamedTuple):
@@ -336,6 +411,7 @@ def rasterize_with_pose_jvp(means3D, camera: Camera, cfg: RasterConfig,
                             colors_precomp=None, shs=None, sh_degree: int = 0,
                             scale_modifier: float = 1.0, bg=None,
                             gt_depth=None, max_instances=None, mesh=None,
+                            tile_axis: str = "tile",
                             binn: Binned = None) -> PoseJvpOutputs:
     """Render plus K exact pose-tangent images in one dual pass.
 
@@ -349,13 +425,17 @@ def rasterize_with_pose_jvp(means3D, camera: Camera, cfg: RasterConfig,
     median's tangent zero.  The render core is the ``render_jvp`` kernel on
     CUDA tensors and its plain version on CPU tensors.  Forward mode only:
     nothing here records a reverse-mode graph.  ``binn`` reuses a binning
-    as in :func:`rasterize`; ``mesh`` (tile sharding) is not ported.
+    as in :func:`rasterize`.  ``mesh`` shards the tile grid over
+    ``tile_axis`` as :func:`rasterize` does (the light variant only, as in
+    the JAX package), bit-equal to the unsharded render.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "tile-sharded rendering is not ported: rasterize_with_pose_jvp "
-            "runs on one device")
     _check_direct(cfg)
+    check_mesh(mesh)
+    if cfg.pose_cov2d_branch and mesh is not None:
+        raise ValueError(
+            "the full variant's pose tangents (pose_cov2d_branch) run on "
+            "one device only; the tile-sharded dual render carries the "
+            "light variant's")
     h, w = camera.height, camera.width
     bg, gt_depth = _defaults(means3D, h, w, bg, gt_depth)
     full = bool(cfg.pose_cov2d_branch)
@@ -368,10 +448,17 @@ def rasterize_with_pose_jvp(means3D, camera: Camera, cfg: RasterConfig,
             means3D, camera, cfg, view_tangents, max_instances, gt_depth,
             binn=binn, **prep_kw)
         tiles_x, _ = grid_dims(h, w, cfg.tile_h, cfg.tile_w)
-        out, tano = core_fwd_jvp(
-            table, tans, binn.tile_start, binn.tile_stop, gt_tiles, cfg=cfg,
-            tiles_x=tiles_x, height=h, width=w, full=full)
-        primal = _outputs(out, prep, binn, bg, cfg, h, w)
+        core_kw = dict(cfg=cfg, tiles_x=tiles_x, height=h, width=w,
+                       full=full)
+        if mesh is None:
+            out, tano = core_fwd_jvp(table, tans, binn.tile_start,
+                                     binn.tile_stop, gt_tiles, **core_kw)
+        else:
+            out, tano = sharded.core_fwd_jvp_sharded(
+                table, tans, binn.tile_start, binn.tile_stop, gt_tiles,
+                sharded.tile_shard(mesh, tile_axis), **core_kw)
+        primal = _outputs(_gaussian_sums(out, binn), prep,
+                          binn.num_rendered, binn.overflow, bg, cfg, h, w)
         to_img = lambda x: tiles_to_img(x.movedim(0, -2), h, w, cfg.tile_h,
                                         cfg.tile_w)
         dcolor = to_img(tano.color + tano.t_final[:, :, None, :]

@@ -657,3 +657,98 @@ def test_render_jvp_culls_pairs(dev):
                                   ckw["height"], ckw["width"], dev)[2]
     walked = int(((stop - start).to(torch.int64)[:, None] * px_mask).sum())
     assert 0 < int(pairs) < walked
+
+
+# ---- the kernels on a run of the image's tiles (tile0) -------------------
+
+
+def band_of(args, rank, n):
+    """Rank ``rank`` of ``n``'s run of tiles of a binning's tile arrays
+    (``parallel.sharded``'s split) and its first tile."""
+    from diff_gaussian_rasterization_tpu_torch.parallel import sharded
+    table, start, stop, gt = args
+    tile0, count = sharded.tile_share(start.shape[0], n, rank)
+    band = tuple(sharded.local_tiles(x, tile0, count)
+                 for x in (start, stop, gt))
+    return (table,) + band, tile0
+
+
+@pytest.mark.parametrize("tile", [(8, 16), (32, 32), (12, 20)])
+def test_render_kernels_at_tile0_match_plain(dev, tile):
+    """``render_fwd``, ``render_bwd`` and ``render_jvp`` on a band of tiles
+    that starts past tile 0 (``tile0 > 0``) against their plain versions
+    on that band."""
+    args, ckw, fwd, totals, cots = bwd_inputs(tile, dev, p=12000)
+    band, tile0 = band_of(args, 1, 2)
+    assert tile0 > 0
+    k = render.core_fwd(*band, tile0=tile0, **ckw)
+    p = render.core_fwd_reference(*band, tile0=tile0, **ckw)
+    torch.cuda.synchronize()
+    assert_core_close(k, p)
+    assert int((k.midx >= 0).sum()) > 0
+    from diff_gaussian_rasterization_tpu_torch.parallel import sharded
+    count = band[1].shape[0]
+    btot = (k.color, k.depth, k.weight, k.var, k.t_final)
+    bcot = tuple(sharded.local_tiles(c, tile0, count) for c in cots)
+    rows_k = render.core_bwd(*band, btot, bcot, n_contrib=k.n_contrib,
+                             tile0=tile0, **ckw)
+    pix = render.blend.bwd_pixel_inputs(band[3], *btot, *bcot).contiguous()
+    rows_p = render.core_bwd_reference(*band[:3], pix, tile0=tile0, **ckw)
+    tile_ok = (k.n_contrib == p.n_contrib).all(dim=1)
+    assert float((~tile_ok).float().mean()) < 0.05
+    start, stop = band[1].to(torch.int64), band[2].to(torch.int64)
+    owned = torch.zeros(rows_k.shape[0], dtype=torch.bool, device=dev)
+    for t in torch.nonzero(tile_ok).flatten().tolist():
+        owned[start[t]:stop[t]] = True
+    torch.testing.assert_close(rows_k[owned], rows_p[owned], rtol=1e-3,
+                               atol=2e-4)
+    assert float(rows_k[owned].abs().max()) > 0
+    g = torch.Generator().manual_seed(1)
+    tans = torch.randn(band[0].shape[0], 18, generator=g).to(dev)
+    out, tan = render.core_fwd_jvp(band[0], tans, *band[1:], tile0=tile0,
+                                   **ckw)
+    p_out, p_tan = render.core_fwd_jvp_reference(band[0], tans, *band[1:],
+                                                 tile0=tile0, **ckw)
+    assert_core_close(out, p_out)
+    assert_tangents_close(tan, p_tan, out, p_out)
+    for f in ("color", "depth", "n_contrib", "midx"):
+        assert torch.equal(getattr(out, f), getattr(k, f)), f
+
+
+@pytest.mark.parametrize("n", [2, 3])
+def test_render_kernels_on_bands_bit_equal_to_one_launch(dev, n):
+    """Every rank's band rendered at its ``tile0``, put together, is the
+    one launch over the whole grid bit for bit (``tile0 = 0`` is that
+    launch): the tile-major outputs, the summed per-instance statistics
+    and gradient rows, and the dual render's primal and tangents."""
+    from diff_gaussian_rasterization_tpu_torch.parallel import sharded
+    args, ckw, fwd, totals, cots = bwd_inputs((16, 16), dev, p=12000)
+    t = args[1].shape[0]
+    rows = render.core_bwd(*args, totals, cots, n_contrib=fwd.n_contrib,
+                           **ckw)
+    g = torch.Generator().manual_seed(2)
+    tans = torch.randn(args[0].shape[0], 18, generator=g).to(dev)
+    jout, jtan = render.core_fwd_jvp(args[0], tans, *args[1:], **ckw)
+    parts, u, npix, rows_sum, jparts = [], 0, 0, 0, []
+    for r in range(n):
+        band, tile0 = band_of(args, r, n)
+        k = render.core_fwd(*band, tile0=tile0, **ckw)
+        parts.append(k)
+        u, npix = u + k.u_inst, npix + k.npix_inst
+        count = band[1].shape[0]
+        bcot = tuple(sharded.local_tiles(c, tile0, count) for c in cots)
+        rows_sum = rows_sum + render.core_bwd(
+            *band, (k.color, k.depth, k.weight, k.var, k.t_final), bcot,
+            n_contrib=k.n_contrib, tile0=tile0, **ckw)
+        jparts.append(render.core_fwd_jvp(band[0], tans, *band[1:],
+                                          tile0=tile0, **ckw))
+    for i, f in enumerate(render.CoreOutputs._fields[:9]):
+        whole = torch.cat([getattr(x, f) for x in parts])[:t]
+        assert torch.equal(whole, getattr(fwd, f)), f
+        jwhole = torch.cat([getattr(x[0], f) for x in jparts])[:t]
+        assert torch.equal(jwhole, getattr(jout, f)), f
+    for f in render.PoseTangents._fields:
+        jwhole = torch.cat([getattr(x[1], f) for x in jparts])[:t]
+        assert torch.equal(jwhole, getattr(jtan, f)), f
+    assert torch.equal(u, fwd.u_inst) and torch.equal(npix, fwd.npix_inst)
+    assert torch.equal(rows_sum, rows)

@@ -14,7 +14,9 @@ row's ``scales_log - log(1.6)``; those rows are held at rtol 1e-6, atol
 steps, densify every 2, uncertainty pruning) on ``test_torch_mapping.py``'s
 window: the same active mask, the same slots spawned, and the parameters
 within that file's tolerance (a tenth of each field's learning rate where
-its gradient is live, at rtol 1e-5 elsewhere).  Also the port's own
+its gradient is live, at rtol 1e-5 elsewhere); on a one-rank gloo mesh
+the same round bit for bit, and a ``mesh`` that is not a DeviceMesh
+refused (``TypeError``).  Also the port's own
 versions of ``test_slam.py``'s ``test_densify_clone_and_split`` and
 ``test_mapping_improves_model``.
 """
@@ -36,9 +38,11 @@ from diff_gaussian_rasterization_tpu_torch.convert import (
 from diff_gaussian_rasterization_tpu_torch.models import gaussians, slam
 from diff_gaussian_rasterization_tpu_torch.models.gaussians import (
     PARAM_FIELDS, DensifyState)
+from diff_gaussian_rasterization_tpu_torch.parallel.mesh import make_mesh
 
 from test_torch_mapping import H, TANX, TANY, W, window
 from test_torch_rasterize import CFG, port_config
+from torch_dist_cases import one_rank_world
 
 torch.set_num_threads(2)
 
@@ -258,9 +262,24 @@ def test_mapping_round_matches_jax(monkeypatch):
         np.testing.assert_allclose(a[k], b[k], rtol=1e-5,
                                    atol=3 * lrs[k] / 10 + 1e-6, err_msg=k)
     np.testing.assert_array_equal(td.denom.numpy(), np.asarray(jd.denom))
-    with pytest.raises(NotImplementedError):
+    # the meshed round: a mesh that is not a DeviceMesh is refused, and on a
+    # one-rank mesh (every axis one rank: no keyframe padding, no sharding)
+    # the round is the one-device round bit for bit
+    with pytest.raises(TypeError):
         slam.mapping_round(tm, opt, td, (t(views), t(rgbs), t(depths)),
                            port_config(cfg), mcfg_t, cam_t, mesh=object())
+    with one_rank_world():
+        mesh = make_mesh((1, 1), ("kf", "tile"), backend="gloo")
+        tm2 = gaussian_model_from_numpy(fields, device="cpu")
+        td2, tl2 = slam.mapping_round(
+            tm2, slam.make_map_optimizer(tm2, mcfg_t),
+            DensifyState.zero(96, device="cpu"),
+            (t(views), t(rgbs), t(depths)), port_config(cfg), mcfg_t, cam_t,
+            densify_every=2, mesh=mesh)
+    assert float(tl2) == float(tl)
+    for k, v in fields_of(tm2).items():
+        np.testing.assert_array_equal(v, a[k], err_msg=k)
+    assert torch.equal(td2.grad_accum, td.grad_accum)
 
 
 def test_densify_clone_and_split():

@@ -6,7 +6,9 @@ the JAX package's ``render_model`` images of the same PLY, quantized the
 same way, within one uint8 level (the orbit views are an ulp apart between
 the packages).  ``fit_scene`` lowers its loss and writes a PLY that loads
 back to the fitted model.  ``run_slam`` tracks a short orbit to an ATE
-below the static-pose baseline's, and refuses ``--mesh``.
+below the static-pose baseline's, on one device and with ``--mesh kf=2``
+(two ranks it spawns on the CPU, rank 0 printing): the same bound, the
+same result from both ranks, and one ATE line printed.
 """
 
 import numpy as np
@@ -102,6 +104,14 @@ def test_run_slam_tracks_orbit():
     assert res["ate_m"] < 0.5 * res["ate_static_m"]
 
 
-def test_run_slam_mesh_not_ported():
-    with pytest.raises(NotImplementedError, match="parallel"):
-        run_slam.main(["--mesh", "kf=2", "--cpu"])
+def test_run_slam_mesh_not_ported(capfd):
+    """(The name predates the parallel layer.)  ``--mesh kf=2`` spawns two
+    ranks; every rank returns the same run, and only rank 0 prints."""
+    res = run_slam.main(["--mesh", "kf=2", "--cpu", "--frames", "4",
+                         "--res", "24x32", "--gaussians", "300"])
+    assert res["frames"] == 4
+    assert np.isfinite(res["ate_m"])
+    assert res["ate_m"] < 0.5 * res["ate_static_m"]
+    out = capfd.readouterr().out
+    assert out.count("ATE RMSE:") == 1, out
+    assert "on a kf=2 mesh" in out

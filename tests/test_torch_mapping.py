@@ -8,6 +8,8 @@ tolerance of ``test_rasterize.py`` (rtol 5e-4 / atol 2e-5), the densify
 statistics, and the parameters after each step within a tenth of each
 field's learning rate (Adam's first steps move an entry by about
 lr * sign(g), so entries whose gradient is below 1e-6 are left out).
+The map-sharded step on a one-rank gloo mesh updates the model bit for
+bit as the one-device step does; a map axis without a mesh is refused.
 """
 
 import dataclasses
@@ -28,8 +30,10 @@ from diff_gaussian_rasterization_tpu_torch.convert import (
 from diff_gaussian_rasterization_tpu_torch.models import slam
 from diff_gaussian_rasterization_tpu_torch.models.gaussians import (
     PARAM_FIELDS, DensifyState)
+from diff_gaussian_rasterization_tpu_torch.parallel.mesh import make_mesh
 
 from test_torch_rasterize import CFG, port_config
+from torch_dist_cases import one_rank_world
 
 torch.set_num_threads(2)
 
@@ -217,10 +221,29 @@ def test_map_step_matches_jax():
             b = np.asarray(getattr(jm, k))[live]
             assert np.abs(a - b).max() <= lr / 10, (step, k)
     assert float(td.denom.max()) > 0
-    with pytest.raises(NotImplementedError):
+    # the meshed step: a map axis needs a mesh; on a one-rank mesh the
+    # map-sharded step (the visible subset gathered, the gradients routed
+    # back to the map's rows) updates the model bit for bit as the
+    # one-device step does
+    with pytest.raises(ValueError):
         slam.map_step(tm, opt, td, t(views), t(rgbs), t(depths), t(wts),
                       port_config(cfg), mcfg_t, H, W, TANX, TANY, 2,
                       map_axis="map")
+    models = []
+    with one_rank_world():
+        mesh = make_mesh((1, 1), ("kf", "map"), backend="gloo")
+        for kw in ({}, dict(mesh=mesh, map_axis="map")):
+            m = gaussian_model_from_numpy(fields, device="cpu")
+            loss, _, _ = slam.map_step(
+                m, slam.make_map_optimizer(m, mcfg_t),
+                DensifyState.zero(m.capacity, device="cpu"), t(views),
+                t(rgbs), t(depths), t(wts), port_config(cfg), mcfg_t, H, W,
+                TANX, TANY, 2, **kw)
+            models.append((float(loss), m))
+    assert models[0][0] == models[1][0]
+    for k in PARAM_FIELDS:
+        assert torch.equal(getattr(models[0][1], k),
+                           getattr(models[1][1], k)), k
 
 
 def jax_bench_make_model():

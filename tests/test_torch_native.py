@@ -8,7 +8,8 @@ build directory, never the JAX package's ``_native/``) from the same
 result at atol 1e-12 (the same float64 C++ on the same inputs).
 ``parallel.sharded.refine_poses_sharded(mesh=None)`` holds the JAX
 package's at atol 1e-5 (float32 normal equations summed in another
-order).  ``native.decode_rgbd_batch`` (g++ builds ``csrc/rgbd_io.cpp``
+order), and on a one-rank gloo mesh its edge-sharded form equals it bit
+for bit.  ``native.decode_rgbd_batch`` (g++ builds ``csrc/rgbd_io.cpp``
 against libpng and libjpeg into the same directory) decodes written JPEG /
 16-bit PNG pairs bit-equal to the JAX package's ``decode_rgbd_batch`` and
 like PIL as ``test_native.test_rgbd_decoder_roundtrip`` holds it; a failed
@@ -27,6 +28,9 @@ from diff_gaussian_rasterization_tpu_torch import native
 from diff_gaussian_rasterization_tpu_torch.ops.kernels._build import (
     BUILD_DIR)
 from diff_gaussian_rasterization_tpu_torch.parallel import sharded
+from diff_gaussian_rasterization_tpu_torch.parallel.mesh import make_mesh
+
+from torch_dist_cases import one_rank_world
 
 torch.set_num_threads(2)
 
@@ -114,9 +118,15 @@ def test_chordal_residual_matches_jax():
 
 
 def test_refine_poses_mesh_raises():
+    """A mesh that is not a DeviceMesh raises; on a one-rank gloo mesh the
+    edge-sharded solver is the one-device solver bit for bit."""
     _, noisy, edges, zs = noisy_chain(k=3)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         sharded.refine_poses_sharded(noisy, edges, zs, mesh=object())
+    with one_rank_world():
+        mesh = make_mesh((1,), ("kf",), backend="gloo")
+        got = sharded.refine_poses_sharded(noisy, edges, zs, mesh=mesh)
+    assert torch.equal(got, sharded.refine_poses_sharded(noisy, edges, zs))
 
 
 

@@ -10,7 +10,9 @@ atol 5e-5; also with K = 2 and 8 view directions, as the JAX package
 takes any K.  Then the overflow report of
 ``test_pose_jvp_overflow_reported`` and the three checks of
 ``test_binning_reuse_exact_at_bin_pose`` on the port (``bin_for_view`` +
-``rasterize(binn=)``), at that test's tolerances.
+``rasterize(binn=)``), at that test's tolerances.  The overflow test
+also holds the tile-sharded dual render on a one-rank gloo mesh bit-equal
+to the unsharded one.
 """
 
 import jax
@@ -25,10 +27,12 @@ from diff_gaussian_rasterization_tpu.ops.rasterize import (
 from diff_gaussian_rasterization_tpu_torch.models import lie
 from diff_gaussian_rasterization_tpu_torch.ops.rasterize import (
     bin_for_view, rasterize, rasterize_with_pose_jvp)
+from diff_gaussian_rasterization_tpu_torch.parallel.mesh import make_mesh
 
 from scenes import make_scene
 from test_torch_rasterize import (CFG, assert_outputs_close, port_camera,
                                   port_config, to_torch)
+from torch_dist_cases import one_rank_world
 
 torch.set_num_threads(2)
 
@@ -103,11 +107,25 @@ def test_pose_jvp_overflow_reported():
         twist_basis(tcam.viewmatrix), max_instances=128, **kw)
     assert bool(j.out.overflow)
     assert bool(torch.isfinite(j.color).all())
-    with pytest.raises(NotImplementedError):
-        rasterize_with_pose_jvp(
-            torch.as_tensor(np.array(scene["means3D"])), tcam,
-            port_config(CFG), twist_basis(tcam.viewmatrix), mesh=object(),
-            **kw)
+    # the tile-sharded dual render: a mesh that is not a DeviceMesh and the
+    # full variant on a mesh are refused; on a one-rank gloo mesh the light
+    # dual render is the unsharded one bit for bit, overflow included
+    means = torch.as_tensor(np.array(scene["means3D"]))
+    basis = twist_basis(tcam.viewmatrix)
+    with pytest.raises(TypeError):
+        rasterize_with_pose_jvp(means, tcam, port_config(CFG), basis,
+                                mesh=object(), **kw)
+    with one_rank_world():
+        mesh = make_mesh((1,), ("tile",), backend="gloo")
+        with pytest.raises(ValueError):
+            rasterize_with_pose_jvp(means, tcam, port_config(CFG).replace(
+                pose_cov2d_branch=True), basis, mesh=mesh, **kw)
+        m = rasterize_with_pose_jvp(means, tcam, port_config(CFG), basis,
+                                    max_instances=128, mesh=mesh, **kw)
+    for name in ("color", "depth", "opacity_map"):
+        assert torch.equal(getattr(m, name), getattr(j, name)), name
+    for name in j.out._fields:
+        assert torch.equal(getattr(m.out, name), getattr(j.out, name)), name
 
 
 def test_binning_reuse_exact_at_bin_pose():

@@ -15,8 +15,9 @@ across from the JAX package.
 
 The port's own versions of ``test_runner.py``'s coverage trigger,
 cooldown, budget regrowth, relocalization and checkpoint-resume tests (the
-resumed run bit-equal to the one never stopped), and a mesh raising
-``NotImplementedError``.
+resumed run bit-equal to the one never stopped); a ``mesh`` that is not
+a DeviceMesh raising ``TypeError``, and a step and a refinement on a
+one-rank gloo mesh bit-equal to one device's.
 """
 
 import copy
@@ -40,8 +41,10 @@ from diff_gaussian_rasterization_tpu_torch.io import synthetic
 from diff_gaussian_rasterization_tpu_torch.models import lie, runner, slam
 from diff_gaussian_rasterization_tpu_torch.models.gaussians import (
     PARAM_FIELDS)
+from diff_gaussian_rasterization_tpu_torch.parallel.mesh import make_mesh
 
 from test_torch_rasterize import port_config
+from torch_dist_cases import one_rank_world
 
 torch.set_num_threads(2)
 
@@ -491,18 +494,39 @@ def test_relocalization_rescues_bad_motion_init():
 
 
 def test_mesh_raises():
+    """A ``SLAMConfig.mesh`` that is not a DeviceMesh raises in every
+    meshed entry; on a one-rank gloo mesh a step and the edge-sharded
+    refinement give the one-device state bit for bit."""
     ct, views, frames = port_world(2)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         runner.init_slam(views[0], frames[0], ct,
                          loop_config(mesh=object()))
     state = runner.init_slam(views[0], frames[0], ct, loop_config())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         runner.slam_step(state, frames[1], ct, loop_config(mesh=object()), 1)
     state.kf_views += [views[1], views[1]]
     state.kf_frames += [frames[1], frames[1]]
-    with pytest.raises(NotImplementedError):
+    state.kf_idx += [1, 1]
+    meshed = copy.deepcopy(state)
+    with pytest.raises(TypeError):
         runner.refine_keyframes(state, loop_config(mesh=object(),
                                                    refine_track_iters=0), ct)
+    state = copy.deepcopy(meshed)
+    with one_rank_world():
+        scfg = loop_config(mesh=make_mesh((1, 1), ("kf", "tile"),
+                                          backend="gloo"),
+                           refine_track_iters=2)
+        runner.slam_step(meshed, frames[1], ct, scfg, 1)
+        runner.refine_keyframes(meshed, scfg, ct)
+    scfg = loop_config(refine_track_iters=2)
+    runner.slam_step(state, frames[1], ct, scfg, 1)
+    runner.refine_keyframes(state, scfg, ct)
+    for a, b in zip(state.est_views + state.kf_views,
+                    meshed.est_views + meshed.kf_views):
+        assert torch.equal(a, b)
+    for k, v in np_fields(state.model).items():
+        np.testing.assert_array_equal(v, np_fields(meshed.model)[k],
+                                      err_msg=k)
 
 
 def test_runner_keeps_the_optimizer_parameters():

@@ -12,7 +12,9 @@ and the Gauss-Newton methods meet ``test_slam.py``'s recovery bounds
 (rotation and translation error below 0.35 of the perturbation's; 0.5 with
 the pyramid, as ``test_tracking_pyramid_recovers_pose`` holds it).  Adam
 at its default rate moves the pose by ~lr per step; ``test_slam.py`` holds
-it to no recovery bound, and neither does this file.
+it to no recovery bound, and neither does this file.  On a one-rank gloo
+mesh, tracking against the gathered visible subset of a map-sharded model
+gives the one-device result bit for bit.
 """
 
 import dataclasses
@@ -29,9 +31,11 @@ from diff_gaussian_rasterization_tpu_torch.convert import (
 from diff_gaussian_rasterization_tpu_torch.models import slam
 from diff_gaussian_rasterization_tpu_torch.models.gaussians import (
     PARAM_FIELDS)
+from diff_gaussian_rasterization_tpu_torch.parallel.mesh import make_mesh
 
 from test_slam import CAM_T, CFG, make_world, pose_error
 from test_torch_rasterize import port_config
+from torch_dist_cases import one_rank_world
 
 torch.set_num_threads(2)
 
@@ -114,8 +118,21 @@ def test_track_frame_matches_jax(world, case):
 
 
 def test_track_frame_sharded_raises(world):
+    """A mesh that is not a DeviceMesh raises; on a one-rank gloo mesh,
+    tracking against the visible subset of a map-sharded model (gathered
+    at the start pose) gives the one-device pose and costs bit for
+    bit."""
     tm, tview0, tframe = world["port"]
-    with pytest.raises(NotImplementedError):
-        slam.track_frame(tm, tview0, tframe, port_config(CFG),
-                         slam.TrackingConfig(iters=1), world["cam"],
-                         map_axis="map")
+    tcfg = slam.TrackingConfig(iters=2, sil_threshold=0.95)
+    with pytest.raises(TypeError):
+        slam.track_frame(tm, tview0, tframe, port_config(CFG), tcfg,
+                         world["cam"], mesh=object())
+    one = slam.track_frame(tm, tview0, tframe, port_config(CFG), tcfg,
+                           world["cam"])
+    with one_rank_world():
+        mesh = make_mesh((1, 1), ("tile", "map"), backend="gloo")
+        meshed = slam.track_frame(tm, tview0, tframe, port_config(CFG),
+                                  tcfg, world["cam"], mesh=mesh,
+                                  map_axis="map")
+    for a, b in zip(one, meshed):
+        assert torch.equal(a, b)
