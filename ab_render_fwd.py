@@ -2,13 +2,14 @@
 """A/B the port's ``render_fwd`` kernel against other versions of its source
 on one NVIDIA GPU.
 
-    python3 ab_render_fwd.py BASELINE [BASELINE ...]
+    python3 ab_render_fwd.py [--basis] BASELINE [BASELINE ...]
 
 Each BASELINE is a directory holding a ``render_fwd.cu`` (and the headers
 it includes), for example the ``ops/kernels/csrc`` of a ``git archive`` of
 an older commit, or a copy of this checkout's with a constant changed.
 Every baseline is built with this checkout's nvcc flags (one nvcc per
-source, all started together) and its register report printed.  Then, on
+source, all started together) and its register report printed.  ``--basis`` renders with
+``RasterConfig.splat_basis_power`` (every version must take it).  Then, on
 the scenes ``chip_smoke.py`` measures -- the bench scene (100,000
 Gaussians, 1200x680, 32x32 tiles) and the first map step's render of the
 500,000-Gaussian mapping model -- each baseline's outputs are held bit for
@@ -17,7 +18,8 @@ events in turns (this checkout, the baselines, then the same in reverse),
 beside the card's name and power limit.
 
 An older ``render_fwd`` entry point without the trailing pair-counter
-argument is recognised from its source and called without it.  Exits
+argument, the first tile's index or the basis flag is recognised from its
+source and called without them.  Exits
 non-zero when there is no CUDA device or a baseline's outputs differ.
 """
 
@@ -31,17 +33,20 @@ import time
 
 def entry_signature(src: str):
     """Whether the source's ``render_fwd`` C entry point takes the pair
-    counter before the stream, and whether it takes the first tile's
-    index ``tile0`` after ``tiles_x`` (16 parameters without either, 17
-    with the counter, 18 with both)."""
+    counter before the stream, whether it takes the first tile's index
+    ``tile0`` after ``tiles_x``, and whether it takes the ``basis`` flag
+    before the counter (16 parameters without any, 17 with the counter,
+    18 with the counter and ``tile0``, 19 with all three)."""
     m = re.search(r'extern "C" int render_fwd\((.*?)\)', src, re.S)
     if m is None:
         raise ValueError("no render_fwd entry point in the source")
     tile0 = "int tile0" in m.group(1)
-    return m.group(1).count(",") + 1 - tile0 == 17, tile0
+    basis = "int basis" in m.group(1)
+    n = m.group(1).count(",") + 1 - tile0 - basis
+    return n == 17, tile0, basis
 
 
-def main(baselines):
+def main(baselines, basis=False):
     import torch
     if not torch.cuda.is_available():
         print("ab_render_fwd: no CUDA device", file=sys.stderr)
@@ -75,23 +80,27 @@ def main(baselines):
                           stderr=subprocess.STDOUT, text=True))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     libs = {}
-    for base, (so, pairs, tile0, proc) in jobs.items():
+    for base, (so, pairs, tile0, has_basis, proc) in jobs.items():
         log_text, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {base}:\n{log_text}")
         for line in cs.register_report(log_text):
             if line.startswith("render_fwd_kernel"):
                 cs.log(f"[build] {base}: {line}")
+        if basis and not has_basis:
+            raise ValueError(f"{base}: render_fwd takes no basis flag")
         lib = ctypes.CDLL(so)
         lib.render_fwd.argtypes = ([P] * 6 + [I] * (7 if tile0 else 6)
-                                   + [F] * 3 + [P] * (2 if pairs else 1))
+                                   + [F] * 3 + [I] * has_basis
+                                   + [P] * (2 if pairs else 1))
         lib.render_fwd.restype = I
-        libs[base] = (lib, pairs, tile0)
+        libs[base] = (lib, pairs, tile0, has_basis)
 
     def launcher(base, table, start, stop, gt, out_f, out_i, cfg, tiles_x,
                  height, width):
-        lib, pairs, tile0 = libs[base]
-        extra = (None,) if pairs else ()
+        lib, pairs, tile0, has_basis = libs[base]
+        extra = ((int(cfg.splat_basis_power),) if has_basis else ()) + (
+            (None,) if pairs else ())
         first = (0,) if tile0 else ()
 
         def go():
@@ -136,7 +145,7 @@ def main(baselines):
             cs.log(f"[{tag}] {card}: {k}: render_fwd "
                    + ", ".join(f"{x:.4f}" for x in v) + " ms")
 
-    cfg = RasterConfig(tile_h=32, tile_w=32)
+    cfg = RasterConfig(tile_h=32, tile_w=32, splat_basis_power=basis)
     means, kw = bench_scene(device=dev)
     cam = bench_camera(device=dev)
     h, w = cam.height, cam.width
@@ -162,10 +171,12 @@ def main(baselines):
 
 
 if __name__ == "__main__":
-    if len(sys.argv) < 2:
-        print(__doc__, file=sys.stderr)
-        sys.exit(2)
+    import argparse
+    ap = argparse.ArgumentParser(usage=__doc__)
+    ap.add_argument("--basis", action="store_true")
+    ap.add_argument("baselines", nargs="+")
+    args = ap.parse_args()
     t0 = time.time()
-    rc = main(sys.argv[1:])
+    rc = main(args.baselines, args.basis)
     print(f"ab_render_fwd: {time.time() - t0:.1f} s", flush=True)
     sys.exit(rc)

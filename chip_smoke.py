@@ -303,7 +303,8 @@ def compare_core(k, p, tol_rtol=1e-4, tol_atol=2e-5):
     return worst, rep, ok
 
 
-def render_fwd_bound_ms(out, tile_start, tile_stop, pixmask):
+def render_fwd_bound_ms(out, tile_start, tile_stop, pixmask,
+                        ops_per_pair=OPS_PER_PAIR, ops_per_pixel=0):
     """The least time the card could take for this run's blend: the
     operations of the pairs that contribute, against the FP32 peak; and the
     bytes (features of the instances in segments, ranges, ground truth,
@@ -319,7 +320,8 @@ def render_fwd_bound_ms(out, tile_start, tile_stop, pixmask):
                                        seg))
     pairs = int(torch.where(pixmask, walked, torch.zeros_like(walked)).sum())
     contribs = int(out.n_valid.to(torch.int64).sum())
-    ops = contribs * (OPS_PER_PAIR + OPS_PER_CONTRIB)
+    ops = (contribs * (ops_per_pair + OPS_PER_CONTRIB)
+           + ops_per_pixel * int(pixmask.sum()))
     t, q = out.depth.shape
     n_inst = int(seg.sum())
     nbytes = n_inst * 11 * 4 + t * 2 * 4 + t * q * 4 + t * q * 12 * 4
@@ -330,11 +332,14 @@ def render_fwd_bound_ms(out, tile_start, tile_stop, pixmask):
     return ms_bytes, "bytes", info
 
 
-def render_bwd_bound_ms(contribs, n_inst, n_tiles, q):
+def render_bwd_bound_ms(contribs, n_inst, n_tiles, q,
+                        ops_per_pair=OPS_PER_PAIR,
+                        ops_per_contrib=OPS_PER_CONTRIB_BWD, pixel_ops=0):
     """The backward's least time: the pair test and the backward's
-    operations per contribution over the FP32 peak; the bytes (features,
-    ranges, the per-pixel constants, the rows written) over HBM."""
-    ops = contribs * (OPS_PER_PAIR + OPS_PER_CONTRIB_BWD)
+    operations per contribution (plus ``pixel_ops`` in all, made once a
+    pixel) over the FP32 peak; the bytes (features, ranges, the per-pixel
+    constants, the rows written) over HBM."""
+    ops = contribs * (ops_per_pair + ops_per_contrib) + pixel_ops
     nbytes = (n_inst * 11 * 4 + n_tiles * 2 * 4 + n_tiles * q * 10 * 4
               + n_inst * 12 * 4)
     ms_ops, ms_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -2399,6 +2404,314 @@ def mesh_phase(dev, check):
                 ate_mesh_m=ate_mesh, ate_one_m=ate_one, pose_err=pose_err)
 
 
+# The basis form of the splat exponent (phase 8): the pair test's exponent
+# as five products and five sums of a splat's coefficients with the
+# pixel's basis terms, 10 FP32 operations where the direct form takes ~11.
+# The basis terms (qx, qy and their three products) depend on the pixel
+# alone: 5 operations a pixel, counted once a pixel.  The backward's
+# gradient terms need dx, dy besides, which the direct form's pair test
+# makes: 2 more a contribution.  The coefficients, once per instance and
+# tile, are not counted.
+OPS_PER_PAIR_BASIS = OPS_PER_PAIR - 1
+OPS_PER_PIXEL_BASIS = 5
+OPS_PER_CONTRIB_BWD_BASIS = OPS_PER_CONTRIB_BWD + 2
+def check_basis_kernels(tag, table, binn, gt_tiles, bkw, check, seed=0,
+                        band=False):
+    """Phase 8's kernel checks at one render's shapes, with the exponent's
+    basis form (``bkw``'s cfg): ``render_fwd``'s basis instantiation
+    against the plain version with the basis (and bit-equal to a repeat),
+    ``render_bwd``'s (stopped at the basis forward's ``n_contrib``) rows
+    under the row rule and against float64, the culling boxes against the
+    blend over every pair of the binning (``render.cull_misses``), and,
+    with ``band``, one band of tiles launched at ``tile0 > 0`` bit-equal to
+    the full launch's slice.  Returns what the times reuse."""
+    import torch
+    from diff_gaussian_rasterization_tpu_torch.ops import blend
+    from diff_gaussian_rasterization_tpu_torch.ops.kernels import render
+    from diff_gaussian_rasterization_tpu_torch.parallel import sharded
+    dev = table.device
+    start, stop = binn.tile_start, binn.tile_stop
+    out_k = render.core_fwd(table, start, stop, gt_tiles, **bkw)
+    again = render.core_fwd(table, start, stop, gt_tiles, **bkw)
+    out_p = render.core_fwd_reference(table, start, stop, gt_tiles, **bkw)
+    torch.cuda.synchronize()
+    err_fwd, rep, ok = compare_core(out_k, out_p)
+    n_px = out_k.n_contrib.numel()
+    flips = {f: int((getattr(out_k, f) != getattr(out_p, f)).sum())
+             for f in ("n_contrib", "n_valid", "midx")}
+    log(f"[basis] {tag}: render_fwd (basis) vs plain: " + json.dumps(rep)
+        + f"; pixels whose integer fields differ, of {n_px}: "
+        + json.dumps(flips))
+    check(ok, f"{tag}: render_fwd (basis) matches its plain version (rtol "
+              "1e-4, atol 2e-5 on agreeing pixels; integer mismatch < 5e-3)")
+    check(flips["n_contrib"] == 0 and flips["n_valid"] == 0,
+          f"{tag}: render_fwd (basis) and its plain version agree on every "
+          "pixel's n_contrib and n_valid")
+    check(all(torch.equal(a, b) for a, b in zip(out_k, again)),
+          f"{tag}: two render_fwd (basis) renders are bit-equal")
+    n_tiles, q = gt_tiles.shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cots = tuple(torch.randn(shape, generator=gen, device=dev)
+                 for shape in [(n_tiles, 3, q)] + [(n_tiles, q)] * 5)
+    totals = (out_k.color, out_k.depth, out_k.weight, out_k.var,
+              out_k.t_final)
+    pix = blend.bwd_pixel_inputs(gt_tiles, *totals, *cots).contiguous()
+    rows_k = render.core_bwd(table, start, stop, gt_tiles, totals, cots,
+                             **bkw, n_contrib=out_k.n_contrib)
+    rows_p = render.core_bwd_reference(table, start, stop, pix, **bkw)
+    out_d = render.core_fwd_reference(table.double(), start, stop,
+                                      gt_tiles.double(), **bkw)
+    rows_d = render.core_bwd_reference(table.double(), start, stop,
+                                       pix.double(), **bkw)
+    torch.cuda.synchronize()
+    tile_ok = (out_k.n_contrib == out_p.n_contrib).all(dim=1)
+    tile_ok_d = tile_ok & (out_k.n_contrib == out_d.n_contrib).all(dim=1)
+    err_bwd, left_out, rep, ok, ok_f64 = compare_rows(
+        rows_k, rows_p, rows_d, tile_ok, tile_ok_d, start, stop)
+    del out_d, rows_d
+    log(f"[basis] {tag}: render_bwd (basis) vs plain: max_abs_err {err_bwd} "
+        f"on the rows of tiles whose n_contrib agrees; rows left out "
+        f"{left_out}; per column against float64: " + json.dumps(rep))
+    check(ok, f"{tag}: render_bwd (basis) matches its plain version (rtol "
+              f"1e-3, atol 2e-4 + {COL_EPS} x the column's largest value; "
+              "rows outside every segment zero)")
+    check(ok_f64, f"{tag}: render_bwd (basis)'s error against float64 is "
+                  f"within {F64_RATIO} x the plain version's, or "
+                  f"{F64_FLOOR} of the column's largest value")
+    check(left_out < 5e-3,
+          f"{tag}: rows of tiles whose n_contrib disagrees < 5e-3 (basis)")
+    geo = {k: bkw[k] for k in ("tiles_x", "height", "width")}
+    t0 = time.time()
+    misses = {form: render.cull_misses(
+        table, start, stop, cfg=bkw["cfg"].replace(splat_basis_power=b),
+        **geo, chunk=4096) for form, b in (("basis", True), ("direct", False))}
+    n_pairs = int((stop - start).to(torch.int64).sum()) * q
+    log(f"[basis] {tag}: pairs of the binning ({n_pairs}) outside their "
+        f"culling box that the blend keeps: {json.dumps(misses)} "
+        f"({time.time() - t0:.1f} s)")
+    check(misses["basis"] == 0 and misses["direct"] == 0,
+          f"{tag}: the culling boxes skip no pair the blend keeps (basis "
+          "form and direct form, every pair of the binning)")
+    if band:
+        tile0, count = sharded.tile_share(n_tiles, 2, 1)
+        bst, bsp, bgt = (sharded.local_tiles(x, tile0, count)
+                         for x in (start, stop, gt_tiles))
+        part = render.core_fwd(table, bst, bsp, bgt, tile0=tile0, **bkw)
+        bcot = tuple(sharded.local_tiles(c, tile0, count) for c in cots)
+        brows = render.core_bwd(
+            table, bst, bsp, bgt, (part.color, part.depth, part.weight,
+                                   part.var, part.t_final), bcot,
+            n_contrib=part.n_contrib, tile0=tile0, **bkw)
+        torch.cuda.synchronize()
+        # the band's tiles past the grid (its padding) are empty
+        real = min(count, n_tiles - tile0)
+        sl = slice(tile0, tile0 + real)
+        lo, hi = int(start[tile0]), int(stop[tile0 + real - 1])
+        same = all(torch.equal(getattr(part, f)[:real], getattr(out_k, f)[sl])
+                   for f in render.CoreOutputs._fields[:9])
+        same_rows = (torch.equal(brows[lo:hi], rows_k[lo:hi])
+                     and not brows[:lo].any() and not brows[hi:].any())
+        log(f"[basis] {tag}: tiles {tile0}..{tile0 + real - 1} launched at "
+            f"tile0 = {tile0}: outputs equal {same}, rows equal {same_rows}")
+        check(tile0 > 0 and same and same_rows,
+              f"{tag}: render_fwd and render_bwd (basis) launched at tile0 = "
+              f"{tile0} equal the full launch's slice bit for bit")
+    out_f = torch.empty((n_tiles, 9, q), device=dev)
+    out_i = torch.empty((n_tiles, 3, q), dtype=torch.int32, device=dev)
+    return dict(out_k=out_k, pix=pix, rows_k=rows_k, binn=binn, table=table,
+                gt_tiles=gt_tiles, out_f=out_f, out_i=out_i,
+                err_fwd=err_fwd, err_bwd=err_bwd)
+
+
+def in_turns(fns, iters, warmup=2):
+    """CUDA-event times of each of ``fns`` (a dict), in turns: the order,
+    then the order reversed (a, b, b, a); each time a list of two."""
+    out = {k: [] for k in fns}
+    for k in list(fns) + list(fns)[::-1]:
+        out[k].append(time_ms(fns[k], iters=iters, warmup=warmup))
+    return out
+
+
+def basis_kernel_times(tag, st_d, st_b, core_kw, bkw, card, plain_iters=1):
+    """``render_fwd`` and ``render_bwd`` in their direct and basis
+    instantiations at one render's shapes, in turns (CUDA events; the
+    backward stopped at each form's own forward's ``n_contrib``), the
+    basis forms' plain versions, and their bounds (the direct form's bytes;
+    operations with the basis pair test).  Returns the two entries of the
+    kernels line."""
+    import torch
+    from diff_gaussian_rasterization_tpu_torch.ops.kernels import render
+    table, binn = st_b["table"], st_b["binn"]
+    start, stop = binn.tile_start, binn.tile_stop
+    gt = st_b["gt_tiles"]
+    n_tiles, q = gt.shape
+    fwd = in_turns({
+        "direct": lambda: render.launch_render_fwd(
+            table, start, stop, gt, st_d["out_f"], st_d["out_i"], **core_kw),
+        "basis": lambda: render.launch_render_fwd(
+            table, start, stop, gt, st_b["out_f"], st_b["out_i"], **bkw)},
+        iters=50)
+    rows_d = torch.zeros_like(st_b["rows_k"])
+    rows_b = torch.zeros_like(st_b["rows_k"])
+    bwd = in_turns({
+        "direct": lambda: render.launch_render_bwd(
+            table, start, stop, st_d["pix"], rows_d, **core_kw,
+            n_contrib=st_d["out_k"].n_contrib),
+        "basis": lambda: render.launch_render_bwd(
+            table, start, stop, st_b["pix"], rows_b, **bkw,
+            n_contrib=st_b["out_k"].n_contrib)}, iters=20)
+    plain_fwd = time_ms(lambda: render.core_fwd_reference(
+        table, start, stop, gt, **bkw), iters=plain_iters, warmup=1)
+    plain_bwd = time_ms(lambda: render.core_bwd_reference(
+        table, start, stop, st_b["pix"], **bkw), iters=plain_iters,
+        warmup=1)
+    pixmask = render.pixel_coords(n_tiles, bkw["tiles_x"], bkw["cfg"].tile_h,
+                                  bkw["cfg"].tile_w, bkw["height"],
+                                  bkw["width"], table.device)[2]
+    bf, byf, finfo = render_fwd_bound_ms(st_b["out_k"], start, stop, pixmask,
+                                         OPS_PER_PAIR_BASIS,
+                                         OPS_PER_PIXEL_BASIS)
+    n_seg = int((stop - start).sum())
+    bb, byb, binfo = render_bwd_bound_ms(
+        finfo["contributions"], n_seg, n_tiles, q, OPS_PER_PAIR_BASIS,
+        OPS_PER_CONTRIB_BWD_BASIS, OPS_PER_PIXEL_BASIS * int(pixmask.sum()))
+    log(f"[time] {card}: render_fwd ({tag}) in turns, direct / basis "
+        f"{fwd['direct']} / {fwd['basis']} ms (basis bound {bf:.4f} ms by "
+        f"{byf}: {json.dumps(finfo)}; plain basis {plain_fwd:.3f} ms)")
+    log(f"[time] {card}: render_bwd ({tag}) in turns, direct / basis "
+        f"{bwd['direct']} / {bwd['basis']} ms (basis bound {bb:.4f} ms by "
+        f"{byb}: {json.dumps(binfo)}; plain basis {plain_bwd:.3f} ms)")
+    mean = lambda v: sum(v) / len(v)
+    return (dict(ms=mean(fwd["basis"]), plain_ms=plain_fwd, bound_ms=bf,
+                 bound_by=byf, library_ms=None,
+                 direct_ms=mean(fwd["direct"])),
+            dict(ms=mean(bwd["basis"]), plain_ms=plain_bwd, bound_ms=bb,
+                 bound_by=byb, library_ms=None,
+                 direct_ms=mean(bwd["direct"])))
+
+
+def basis_phase(dev, check, card, reg_lines, bench, mapped, core_kw,
+                means, kw, cam, cfg, max_inst, wc, model, opt, dstate,
+                map_args):
+    """Phase 8: ``splat_basis_power``.  Its kernels against their plain
+    versions at 100k and at the 500k map step's render, the culling boxes'
+    safety, one band at ``tile0 > 0``; the path (one forward + backward
+    through ``rasterize`` and through ``GaussianRasterizer``, bit-equal,
+    and one ``map_step`` at 500k, with the launch counts); times of both
+    forms in turns.  Returns the kernels line's two entries."""
+    import torch
+    from diff_gaussian_rasterization_tpu_torch.models.slam import map_step
+    from diff_gaussian_rasterization_tpu_torch.ops import rasterize as ras
+    from diff_gaussian_rasterization_tpu_torch.ops.kernels import render
+    t_phase = time.time()
+    for line in reg_lines:
+        if "render_fwd_kernel<" in line or "render_bwd_kernel<" in line:
+            log(f"[basis] registers: {line}")
+    bcfg = cfg.replace(splat_basis_power=True)
+    bkw = dict(core_kw, cfg=bcfg)
+    st100 = check_basis_kernels("100k", bench["table"], bench["binn"],
+                                bench["gt_tiles"], bkw, check, band=True)
+    st500 = check_basis_kernels("500k", mapped["table"], mapped["binn"],
+                                mapped["gt_tiles"], bkw, check, seed=1)
+
+    # the path: rasterize and GaussianRasterizer, forward + backward, and
+    # a map step, each with every count set to 0 just before
+    bench_cfg = bcfg.replace(max_instances=max_inst)
+    a, b = api_leaves(means, kw, cam), api_leaves(means, kw, cam)
+    render.reset_launches()
+    ref = ras_render(b, kw, cam, bench_cfg)
+    api_loss(ref[:8], wc, LOSS_W["opacity_map"]).backward()
+    torch.cuda.synchronize()
+    counts_ras = dict(render.launches)
+    rows_ras = dict(render.row_launches)
+    render.reset_launches()
+    out = api_render(a, kw, cam, bench_cfg, alpha_grad=True)
+    api_loss(out, wc, LOSS_W["opacity_map"]).backward()
+    torch.cuda.synchronize()
+    counts_api = dict(render.launches)
+    log(f"[basis] forward + backward with the flag: rasterize launches "
+        f"{counts_ras} (by row width {rows_ras}), GaussianRasterizer "
+        f"{counts_api}")
+    check(api_launches_ok(counts_ras, rows_ras)
+          and counts_api == counts_ras,
+          "basis: one render_fwd, render_bwd and tile_scatter_sum and two "
+          "segment_sum_rows launches per forward + backward, through "
+          "rasterize and through GaussianRasterizer")
+    check(all(bool(torch.isfinite(o.float()).all()) for o in out)
+          and not bool(ref.overflow),
+          "basis: finite outputs, no overflow")
+    check(all(torch.equal(x, y) for x, y in zip(out, ref[:8]))
+          and grads_equal(a, b) and all(a[k].grad is not None for k in a),
+          "basis: GaussianRasterizer's 8 outputs and every gradient bit-equal "
+          "to rasterize's")
+    direct = ras_render(api_leaves(means, kw, cam), kw, cam,
+                        cfg.replace(max_instances=max_inst))
+    diff = float((direct.color - ref.color).detach().abs().max())
+    ncm = int((direct.n_contrib != ref.n_contrib).sum())
+    log(f"[basis] the basis render against the direct one at 100k: color "
+        f"max_abs_diff {diff}, pixels whose n_contrib differs {ncm}")
+    check(0 < diff < 1e-3, "basis: the basis render differs from the direct "
+                           "one by rounding only (0 < color diff < 1e-3)")
+    b_args = map_args[:4] + (map_args[4].replace(splat_basis_power=True),) \
+        + map_args[5:]
+    render.reset_launches()
+    loss, dstate, _ = map_step(model, opt, dstate, *b_args)
+    torch.cuda.synchronize()
+    counts_map = dict(render.launches)
+    log(f"[basis] map_step at 500k with the flag: loss {float(loss)}, "
+        f"launches {counts_map}")
+    check(bool(torch.isfinite(loss)) and all(
+        counts_map[k] == 1 for k in ("render_fwd", "render_bwd",
+                                     "tile_scatter_sum")),
+          "basis: map_step at 500k launches render_fwd, render_bwd and "
+          "tile_scatter_sum once, finite loss")
+
+    # times: both forms in turns
+    st100_d = dict(bench)
+    st500_d = dict(mapped)
+    f100, b100 = basis_kernel_times("100k", st100_d, st100, core_kw, bkw,
+                                    card)
+    f500, b500 = basis_kernel_times("500k", st500_d, st500, core_kw, bkw,
+                                    card)
+    bench_render = lambda *x, **k: ras.rasterize(*x, max_instances=max_inst,
+                                                 **k)
+    fb = in_turns({
+        "direct": lambda: grads_of(bench_render, means, cam, cfg, kw, wc),
+        "basis": lambda: grads_of(bench_render, means, cam, bcfg, kw, wc)},
+        iters=5, warmup=1)
+    mp = in_turns({
+        "direct": lambda: map_step(model, opt, dstate, *map_args),
+        "basis": lambda: map_step(model, opt, dstate, *b_args)},
+        iters=3, warmup=1)
+    log(f"[time] {card}: forward + backward rasterize at 100k in turns, "
+        f"direct / basis {fb['direct']} / {fb['basis']} ms; map_step at 500k "
+        f"{mp['direct']} / {mp['basis']} ms")
+    took = time.time() - t_phase
+    log(f"[basis] phase 8 took {took:.1f} s")
+    entries = []
+    for name, tag, n, t, err, src, line in (
+            # each scale's own launches: the 100k forward + backward
+            # through rasterize, and the 500k map step
+            ("render_fwd_basis", "100k", counts_ras["render_fwd"], f100,
+             max(st100["err_fwd"], st500["err_fwd"]), "render_fwd.cu", 157),
+            ("render_fwd_basis_500k", "500k", counts_map["render_fwd"], f500,
+             st500["err_fwd"], "render_fwd.cu", 157),
+            ("render_bwd_basis", "100k", counts_ras["render_bwd"], b100,
+             max(st100["err_bwd"], st500["err_bwd"]), "render_bwd.cu", 717),
+            ("render_bwd_basis_500k", "500k", counts_map["render_bwd"], b500,
+             st500["err_bwd"], "render_bwd.cu", 717)):
+        t = dict(t)
+        t.pop("direct_ms")
+        entries.append(dict(
+            name=name, route="cuda",
+            source=f"diff_gaussian_rasterization_tpu_torch/ops/kernels/csrc/"
+                   f"{src}",
+            replaces=f"diff_gaussian_rasterization_tpu/ops/kernels/"
+                     f"render_pallas.py:{line}",
+            launches=n, max_abs_err=err, **t))
+    return entries
+
+
 def main():
     import torch
 
@@ -2442,9 +2755,11 @@ def main():
     t0 = time.time()
     logs = _build.build_all()
     log(f"[build] {len(logs)} source(s) in {time.time() - t0:.1f} s")
+    reg_lines = []
     for name, text in logs.items():
         for line in register_report(text):
             log(f"[build] {name}: {line}")
+            reg_lines.append(f"{name}: {line}")
 
     # ---- 2. kernels against their plain versions -----------------------
     log(f"[phase] 2 starts at +{time.time() - t_main:.1f} s")
@@ -2796,6 +3111,12 @@ def main():
     log(f"[phase] 7 starts at +{time.time() - t_main:.1f} s")
     mesh = mesh_phase(dev, check)
 
+    # ---- 8. the exponent's basis form ----------------------------------
+    log(f"[phase] 8 starts at +{time.time() - t_main:.1f} s")
+    basis_entries = basis_phase(dev, check, card, reg_lines, bench, mapped,
+                                core_kw, means, kw, cam, cfg, max_inst, wc,
+                                model, opt, dstate, map_args)
+
     # the largest errors over both scales' comparisons and the SLAM run's
     err_fwd, err_bwd, err_rows, err_u, err_ts = (
         max(bench[k], mapped[k], slam_errs[k])
@@ -2860,7 +3181,7 @@ def main():
              ("segment_sum_rows_500k", "500k", rows_map.get(12, 0),
               err_rows),
              ("segment_sum_rows_f2", "f2", rows_fwd.get(2, 0), err_u))
-         ] + jvp_entries
+         ] + jvp_entries + basis_entries
     log(f"[phase] done at +{time.time() - t_main:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"slam": slam}))

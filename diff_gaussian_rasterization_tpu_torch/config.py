@@ -17,8 +17,14 @@ Fields that steer only the TPU kernels and have no effect in this port:
 - ``bin_row_gather``: a choice between two TPU formulations of the binning
   expansion; the port has one expansion whose output is identical to both.
 
-``splat_basis_power=True`` (the splat exponent as a matrix-unit contraction)
-is not ported yet and raises ``NotImplementedError`` where a render starts.
+``splat_basis_power=True`` takes the splat exponent in the JAX package's
+basis form: the quadratic expanded about each tile's corner, six
+coefficients a splat against the tile-local pixel basis ``[1, x, y, x^2,
+y^2, x y]``.  On the TPU that made it a matrix-unit contraction; here the
+plain versions and the CUDA kernels' basis instantiations sum it in one
+fixed order (``ops/blend.py``).  It changes alpha by about 1e-4 relative;
+the dual render (``rasterize_with_pose_jvp``, tracking) refuses it, as the
+JAX package does.
 """
 
 from __future__ import annotations
@@ -80,8 +86,8 @@ class RasterConfig:
     max_instances: Optional[int] = None
     instance_multiplier: int = 8  # used when max_instances is None
 
-    # Splat exponent as a contraction against a pixel moment basis: not
-    # ported yet (raises NotImplementedError when a render starts).
+    # The splat exponent in the basis form about each tile's corner (see the
+    # module docstring): the forward and backward blends, not the dual one.
     splat_basis_power: bool = False
 
     # TPU knobs (see the module docstring): no effect in the port.

@@ -1,7 +1,7 @@
 """Front-to-back alpha blending as masked prefix products, and its VJP.
 
-PyTorch port of the JAX package's ``ops/blend.py`` (direct splat form
-only).  Per pixel, instances sorted front to back:
+PyTorch port of the JAX package's ``ops/blend.py``.  Per pixel, instances
+sorted front to back:
 
 - ``a_i = 1 - alpha_i`` where the instance passes the validity tests
   (``power <= 0`` and ``alpha >= alpha_min``), else 1;
@@ -38,19 +38,61 @@ import torch
 from ..config import RasterConfig
 
 
-def splat_power(xy, conic, px, py):
-    """Per (instance, pixel) Gaussian exponent
-    ``-0.5 (A dx^2 + C dy^2) - B dx dy``, shape [..., G, Q]."""
+def moment_basis(px, py, origin=None):
+    """The pixel basis ``[1, x, y, x^2, y^2, x y]`` [..., 6, Q] of pixel
+    coordinates ``px, py`` [..., Q] taken about ``origin`` (a pair of
+    scalars or of [...] tensors; default: each batch's first pixel)."""
+    at = lambda o: torch.as_tensor(o, dtype=px.dtype, device=px.device)
+    ox = px[..., 0] if origin is None else at(origin[0])
+    oy = py[..., 0] if origin is None else at(origin[1])
+    pxl = px - ox[..., None]
+    pyl = py - oy[..., None]
+    return torch.stack([torch.ones_like(pxl), pxl, pyl, pxl * pxl,
+                        pyl * pyl, pxl * pyl], dim=-2)
+
+
+def splat_basis_coeffs(xy, conic, origin):
+    """The basis form's six coefficients ``(c0, .., c5)``, each
+    [..., G, 1], of splats ``xy`` [..., G, 2], ``conic`` [..., G, 3] about
+    ``origin`` (a pair of scalars or of [...] tensors): the JAX package's
+    expressions, in its operand order."""
     A, B, C = conic[..., 0:1], conic[..., 1:2], conic[..., 2:3]
-    dx = xy[..., 0:1] - px[..., None, :]
-    dy = xy[..., 1:2] - py[..., None, :]
-    return -0.5 * (A * dx * dx + C * dy * dy) - B * dx * dy
+    ox, oy = (torch.as_tensor(o, dtype=xy.dtype, device=xy.device)
+              for o in origin)
+    xg = xy[..., 0:1] - ox[..., None, None]
+    yg = xy[..., 1:2] - oy[..., None, None]
+    return (-0.5 * A * xg * xg - 0.5 * C * yg * yg - B * xg * yg,
+            A * xg + B * yg, C * yg + B * xg, -0.5 * A, -0.5 * C, -B)
 
 
-def splat_alpha(xy, conic, opacity, px, py, cfg: RasterConfig):
+def splat_power(xy, conic, px, py, basis=None, origin=None):
+    """Per (instance, pixel) Gaussian exponent, shape [..., G, Q].
+
+    Direct form: ``-0.5 (A dx^2 + C dy^2) - B dx dy``.  With ``basis``
+    (:func:`moment_basis` about ``origin``, [..., 6, Q]), the basis form of
+    the JAX package's ``splat_power``: the same quadratic expanded about
+    the origin, six coefficients a splat against the pixel basis, summed
+    left to right in elementwise float32 operations (a matmul would leave
+    the order to a BLAS).  The CUDA kernels' ``splat_power_basis`` takes
+    the same operations in the same order, so the two are bit-equal; the
+    expansion's rounding grows with ``|c0| ~ 0.5 A xg^2``, about 1e-4 in
+    power for a centre a tile from the origin."""
+    if basis is None:
+        A, B, C = conic[..., 0:1], conic[..., 1:2], conic[..., 2:3]
+        dx = xy[..., 0:1] - px[..., None, :]
+        dy = xy[..., 1:2] - py[..., None, :]
+        return -0.5 * (A * dx * dx + C * dy * dy) - B * dx * dy
+    c0, c1, c2, c3, c4, c5 = splat_basis_coeffs(xy, conic, origin)
+    b = basis[..., None, :, :]                              # [..., 1, 6, Q]
+    return (c0 + c1 * b[..., 1, :] + c2 * b[..., 2, :] + c3 * b[..., 3, :]
+            + c4 * b[..., 4, :] + c5 * b[..., 5, :])
+
+
+def splat_alpha(xy, conic, opacity, px, py, cfg: RasterConfig, basis=None,
+                origin=None):
     """alpha [..., G, Q] and ok [..., G, Q] (power <= 0 and
-    alpha >= alpha_min)."""
-    power = splat_power(xy, conic, px, py)
+    alpha >= alpha_min); ``basis``/``origin`` as in :func:`splat_power`."""
+    power = splat_power(xy, conic, px, py, basis, origin)
     alpha = torch.clamp_max(opacity[..., None] * torch.exp(power),
                             cfg.alpha_cap)
     ok = (power <= 0.0) & (alpha >= cfg.alpha_min)
@@ -108,12 +150,13 @@ def finish_ucross(carry: BlendCarry, gt):
 
 
 def chunk_weights(prod_in, xy, conic, opacity, valid, px, py,
-                  cfg: RasterConfig):
+                  cfg: RasterConfig, basis=None, origin=None):
     """Alphas, transmittances, blend weights and the median-crossing mask of
-    one [..., G, Q] chunk.  ``valid`` is [..., G, Q] or [..., G].
+    one [..., G, Q] chunk.  ``valid`` is [..., G, Q] or [..., G];
+    ``basis``/``origin`` as in :func:`splat_power`.
 
     Returns (alpha, v, p_incl, t_excl, contrib, w, cross)."""
-    alpha, ok = splat_alpha(xy, conic, opacity, px, py, cfg)
+    alpha, ok = splat_alpha(xy, conic, opacity, px, py, cfg, basis, origin)
     v = (valid if valid.dim() == alpha.dim() else valid[..., None]) & ok
     a_eff = torch.where(v, 1.0 - alpha, torch.ones_like(alpha))
     p_incl = prod_in[..., None, :] * torch.cumprod(a_eff, dim=-2)
@@ -126,7 +169,8 @@ def chunk_weights(prod_in, xy, conic, opacity, valid, px, py,
 
 def blend_chunk_fwd(carry: BlendCarry, xy, conic, opacity, color, depth,
                     depth_med, valid, px, py, base_index, cfg: RasterConfig,
-                    global_base=None, weights=None) -> BlendCarry:
+                    global_base=None, weights=None, basis=None,
+                    origin=None) -> BlendCarry:
     """Blend one front-to-back chunk of instances into the carry.
 
     Args:
@@ -140,10 +184,11 @@ def blend_chunk_fwd(carry: BlendCarry, xy, conic, opacity, color, depth,
         ``base_index``.
       weights: this chunk's :func:`chunk_weights`, when the caller has
         them already.
+      basis, origin: the splat exponent's basis form (:func:`splat_power`).
     """
     if weights is None:
         weights = chunk_weights(carry.prod, xy, conic, opacity, valid, px,
-                                py, cfg)
+                                py, cfg, basis, origin)
     alpha, v, p_incl, t_excl, contrib, w, cross = weights
     g = xy.shape[-2]
     dev = xy.device
@@ -190,6 +235,17 @@ def blend_chunk_fwd(carry: BlendCarry, xy, conic, opacity, color, depth,
 # --------------------------------------------------------------------------
 # dual forward: the blend plus K pose tangents
 # --------------------------------------------------------------------------
+
+
+JVP_REFUSAL = "pose-jvp requires the direct splat path"
+
+
+def check_direct_for_jvp(cfg: RasterConfig):
+    """The dual render's refusal of ``cfg.splat_basis_power``: its
+    tangents differentiate the direct exponent (the JAX package asserts
+    the same, with this reason)."""
+    if cfg.splat_basis_power:
+        raise ValueError(f"{JVP_REFUSAL} (splat_basis_power=True)")
 
 
 class JvpCarry(NamedTuple):
@@ -241,6 +297,10 @@ def blend_chunk_fwd_jvp(carry: JvpCarry, xy, conic, opacity, color, depth,
     tangent sums ``tan_depth_med`` [..., K, G] over the (frozen) crossing;
     None leaves it unchanged, as in the render path, where the median reads
     the pose-detached depth copy.
+
+    The tangents differentiate the direct form of the exponent: the dual
+    render's entry points refuse ``cfg.splat_basis_power``
+    (:func:`check_direct_for_jvp`), and this chunk takes no basis.
     """
     weights = chunk_weights(carry.primal.prod, xy, conic, opacity, valid,
                             px, py, cfg)
@@ -338,7 +398,8 @@ def bwd_pixel_inputs(gt, tot_c, tot_d, tot_w, tot_v, t_final, dL_dc, dL_dd,
 
 def blend_chunk_bwd(carry: BlendBwdCarry, xy, conic, opacity, color, depth,
                     valid, px, py, pix, cfg: RasterConfig,
-                    want_med: bool = True, want_var: bool = True):
+                    want_med: bool = True, want_var: bool = True,
+                    basis=None, origin=None):
     """One forward-ordered backward chunk.
 
     Args: the instance fields as for :func:`blend_chunk_fwd` (``depth`` is
@@ -346,6 +407,9 @@ def blend_chunk_bwd(carry: BlendBwdCarry, xy, conic, opacity, color, depth,
     ``valid`` [..., G, Q], ``pix`` [..., 10, Q] from
     :func:`bwd_pixel_inputs`.  ``want_med``/``want_var`` False leave the
     median and variance columns zero (their cotangents are absent).
+    ``basis``/``origin`` take the exponent in its basis form
+    (:func:`splat_power`), as the forward did: the walk's decisions must be
+    the forward's, and ``G = exp(power)`` feeds the gradient terms too.
 
     Returns (new carry, rows [..., G, 12]) with the columns of
     ``kernels/render.py``'s ``ROW_COLUMNS``: d_xy (pixel units), the true
@@ -354,7 +418,7 @@ def blend_chunk_bwd(carry: BlendBwdCarry, xy, conic, opacity, color, depth,
     d_depth_med (the median crossing).  The per-instance sums over pixels
     are taken directly, with ``dx = x - px``, as the CUDA kernel takes them.
     """
-    power = splat_power(xy, conic, px, py)
+    power = splat_power(xy, conic, px, py, basis, origin)
     g = torch.exp(power)
     alpha = torch.clamp_max(opacity[..., None] * g, cfg.alpha_cap)
     v = valid & (power <= 0.0) & (alpha >= cfg.alpha_min)

@@ -37,13 +37,13 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 SIGNATURES = {
     "render_fwd": {
         "render_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                       _I, _F, _F, _F, _P, _P],
+                       _I, _F, _F, _F, _I, _P, _P],
         "tile_scatter_sum": [_P, _L, _P, _L, _P, _P, _I, _I, _P, _P, _P],
         "segment_sum": [_P, _P, _P, _P, _P, _I, _P],
     },
     "render_bwd": {
         "render_bwd": [_P, _P, _P, _P, _P, _L, _P, _I, _I, _I, _I, _I,
-                       _I, _I, _F, _F, _F, _I, _I, _P, _P],
+                       _I, _I, _F, _F, _F, _I, _I, _I, _P, _P],
         "render_bwd_pixel_map": [_I, _I, _P, _P],
         "segment_sum_rows": [_P, _P, _P, _P, _P, _I, _I, _P],
     },

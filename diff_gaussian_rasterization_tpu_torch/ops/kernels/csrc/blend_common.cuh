@@ -5,7 +5,10 @@
 // culling box outside which that test always skips.  Every kernel
 // evaluates the test in this one expression order, so the backward walks
 // exactly the pairs the forward blended: a pixel on a threshold terminates
-// at the same instance in every pass.
+// at the same instance in every pass.  The exponent has two forms, the
+// direct one (splat_power) and the basis one (splat_power_basis, the JAX
+// package's splat_basis_power); a kernel instantiated for one form takes
+// it in every pass.
 
 #pragma once
 
@@ -117,10 +120,69 @@ __device__ __forceinline__ float splat_alpha(const Splat& g, float G,
   return fminf(prm.alpha_cap, g.op * G);
 }
 
+// The basis form of the exponent (cfg.splat_basis_power): the quadratic
+// expanded about the tile's corner (ox, oy), six coefficients a splat
+//   xg = x - ox, yg = y - oy
+//   c0 = -0.5 A xg^2 - 0.5 C yg^2 - B xg yg,  c1 = A xg + B yg,
+//   c2 = C yg + B xg,  c3 = -0.5 A,  c4 = -0.5 C,  c5 = -B
+// (the JAX package's blend.splat_power, in its operand order) against the
+// pixel basis [1, qx, qy, qx^2, qy^2, qx qy] of the tile-local integer
+// coordinates (qx, qy) (exact in float32, and so are their products below
+// 2^12 px), summed left to right: five products and five sums a pair.  The
+// plain version (blend.splat_power with a basis) takes the same
+// operations in the same order, so the two are bit-equal.  The corner is
+// the image tile's, so a launch at any tile0 gives the same numbers.
+struct Basis {
+  float c0, c1, c2, c3, c4, c5;
+};
+
+__device__ __forceinline__ Basis splat_basis(const Splat& g, float ox,
+                                             float oy) {
+  const float xg = g.x - ox;
+  const float yg = g.y - oy;
+  return Basis{-0.5f * g.A * xg * xg - 0.5f * g.C * yg * yg - g.B * xg * yg,
+               g.A * xg + g.B * yg,
+               g.C * yg + g.B * xg,
+               -0.5f * g.A,
+               -0.5f * g.C,
+               -g.B};
+}
+
+// A pixel's basis terms, made once a pixel and kept in registers: its
+// tile-local coordinates qx = px - ox, qy = py - oy and their products.
+struct PixelBasis {
+  float qx, qy, qxx, qyy, qxy;
+};
+
+__device__ __forceinline__ PixelBasis pixel_basis(float px, float py,
+                                                  float ox, float oy) {
+  const float qx = px - ox;
+  const float qy = py - oy;
+  return PixelBasis{qx, qy, qx * qx, qy * qy, qx * qy};
+}
+
+__device__ __forceinline__ float splat_power_basis(const Basis& c,
+                                                   const PixelBasis& q) {
+  return c.c0 + c.c1 * q.qx + c.c2 * q.qy + c.c3 * q.qxx + c.c4 * q.qyy +
+         c.c5 * q.qxy;
+}
+
 // Relative slack of cull_box against float32 rounding, and its absolute
 // widening in pixels (render.py's cull_extent mirrors both).
 constexpr float kCullRel = 2e-5f;
 constexpr float kCullAbs = 1e-2f;
+// The basis form's rounding, relative to S, the sum of the magnitudes of
+// every term of its expansion over the tile's pixels:
+//   S = 0.5 |A| X^2 + 0.5 |C| Y^2 + |B| X Y,
+//   X = |x - ox| + tile_w - 1,  Y = |y - oy| + tile_h - 1.
+// c0 is three rounded products summed, c1 and c2 two, and the power six
+// rounded products summed: the computed power lies within about
+// (gamma_5 + gamma_6) S ~ 11 u S of the exact quadratic about the rounded
+// xg, yg (u = 2^-24; the rounding of xg, yg itself moves the centre by at
+// most u |x - ox|, under 1e-3 px for images below 16,000 px, inside
+// kCullAbs).  kBasisRel = 1e-6 (~17 u) covers that with room for the
+// rounding of S.
+constexpr float kBasisRel = 1e-6f;
 
 // The box (x0, x1, y0, y1) outside which the splat's alpha is below
 // alpha_min at every pixel.  alpha >= alpha_min needs
@@ -136,12 +198,29 @@ constexpr float kCullAbs = 1e-2f;
 // unbounded, as the per-pair test would not skip such a pair either.  So a
 // kernel may skip every pair whose pixel lies outside the box: the blend
 // would skip it too.
-__device__ __forceinline__ float4 cull_box(const float* f, float alpha_min) {
+//
+// The basis form (kBasis) rounds more than the direct one: its box takes
+// tau grown by kBasisRel S for the tile at (ox, oy) with qxm = tile_w - 1
+// and qym = tile_h - 1, so a pair outside it has a basis power below
+// -tau(opacity) as well.  It is the tile's box, made in each tile's block.
+template <bool kBasis>
+__device__ __forceinline__ float4 cull_box_of(const float* f, float alpha_min,
+                                              float ox, float oy, float qxm,
+                                              float qym) {
   const float x = f[0], y = f[1], op = f[5];
   const float inf = CUDART_INF_F;
   if (op < alpha_min) return make_float4(inf, -inf, inf, -inf);
-  const float tau2 =
-      2.f * logf(op / alpha_min) * (1.f + kCullRel) + kCullRel;
+  float tau2;
+  if constexpr (kBasis) {
+    const float X = fabsf(x - ox) + qxm;
+    const float Y = fabsf(y - oy) + qym;
+    const float s = 0.5f * fabsf(f[2]) * X * X + 0.5f * fabsf(f[4]) * Y * Y +
+                    fabsf(f[3]) * X * Y;
+    tau2 = 2.f * (logf(op / alpha_min) + kBasisRel * s) * (1.f + kCullRel) +
+           kCullRel;
+  } else {
+    tau2 = 2.f * logf(op / alpha_min) * (1.f + kCullRel) + kCullRel;
+  }
   const float a = f[2] * (1.f - kCullRel);
   const float c = f[4] * (1.f - kCullRel);
   const float b = fabsf(f[3]) * (1.f + kCullRel);
@@ -152,6 +231,10 @@ __device__ __forceinline__ float4 cull_box(const float* f, float alpha_min) {
   const float rx = sqrtf(tau2 * c / det) * (1.f + kCullRel) + kCullAbs;
   const float ry = sqrtf(tau2 * a / det) * (1.f + kCullRel) + kCullAbs;
   return make_float4(x - rx, x + rx, y - ry, y + ry);
+}
+
+__device__ __forceinline__ float4 cull_box(const float* f, float alpha_min) {
+  return cull_box_of<false>(f, alpha_min, 0.f, 0.f, 0.f, 0.f);
 }
 
 // Whether a culling box meets the pixel box [x0, x1] x [y0, y1] (an empty

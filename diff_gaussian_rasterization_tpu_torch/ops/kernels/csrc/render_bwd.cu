@@ -81,6 +81,15 @@
 //   chip_smoke.py prints); three blocks spill and ran no faster.
 // - pairs (optional, null on the main path): a variant of the kernel adds
 //   the (instance, pixel) pairs it tested, for the report beside the bound.
+// - The basis form of the exponent (cfg.splat_basis_power; the TPU kernel's
+//   recompute of power with the basis, render_pallas.py:835 and
+//   blend.py:591-597 of the JAX package): a compile-time variant (kBasis)
+//   of the recompute only, as render_fwd's, so the walk keeps the
+//   forward's decisions; the instance's six coefficients are made once
+//   when the warp takes it, each pixel's five basis terms once and held in
+//   registers in place of its position, and dx, dy, which the direct sums
+//   need, only for the pairs that contribute.  G = exp(power) feeds alpha and e alike.  The default
+//   instantiation (kBasis false) is the direct form, unchanged.
 //
 // Numerics.  Built without --use_fast_math and with --fmad=false, like the
 // forward; the plain version (core_bwd_reference) sums over pixels and
@@ -171,7 +180,7 @@ __device__ __forceinline__ float reduce_scatter12(const float (&acc)[kRow],
   return a1 + __shfl_xor_sync(kFull, a1, 1);
 }
 
-template <int PPT, bool kCount>
+template <int PPT, bool kCount, bool kBasis>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 render_bwd_kernel(const float* __restrict__ feat,
                   const int* __restrict__ tile_start,
@@ -197,11 +206,16 @@ render_bwd_kernel(const float* __restrict__ feat,
   const int tg = prm.tile0 + t;  // the tile's index in the image
   const int tx0 = (tg % prm.tiles_x) * prm.tile_w;
   const int ty0 = (tg / prm.tiles_x) * prm.tile_h;
+  // the basis form's origin: the tile's corner
+  const float ox = (float)tx0, oy = (float)ty0;
 
   // per pixel: its walk limit (segment-local; 0: no pixel, or the pixel
   // has ended), position, transmittance, prefix and constants
   int lim[PPT];
   float px[PPT], py[PPT], T[PPT], pre[PPT];
+  // the basis form keeps the pixel's basis terms in place of its position
+  // (px = ox + qx exactly)
+  [[maybe_unused]] blend::PixelBasis pq[PPT];
   float pc0[PPT], pc1[PPT], pc2[PPT], pc3[PPT], pc4[PPT], pc5[PPT];
   float dLdd[PPT], gt[PPT], tot[PPT], dLdmed[PPT];
   int wlim = 0;
@@ -218,8 +232,12 @@ render_bwd_kernel(const float* __restrict__ feat,
     if (live) {
       lim[k] = min(n_contrib[(size_t)t * ncon_stride + qi], seg);
     }
-    px[k] = (float)pxi;
-    py[k] = (float)pyi;
+    if constexpr (kBasis) {
+      pq[k] = blend::pixel_basis((float)pxi, (float)pyi, ox, oy);
+    } else {
+      px[k] = (float)pxi;
+      py[k] = (float)pyi;
+    }
     T[k] = 1.f;
     pre[k] = 0.f;
     const float* pp = pix + (size_t)t * kPix * q + (qi < q ? qi : 0);
@@ -272,8 +290,14 @@ render_bwd_kernel(const float* __restrict__ feat,
     }
     const float* sf = s_feat[stage];
     if (threadIdx.x < n) {
-      s_box[threadIdx.x] = blend::cull_box(sf + threadIdx.x * kFeatPad,
-                                           prm.alpha_min);
+      if constexpr (kBasis) {
+        s_box[threadIdx.x] = blend::cull_box_of<true>(
+            sf + threadIdx.x * kFeatPad, prm.alpha_min, ox, oy,
+            (float)(prm.tile_w - 1), (float)(prm.tile_h - 1));
+      } else {
+        s_box[threadIdx.x] = blend::cull_box(sf + threadIdx.x * kFeatPad,
+                                             prm.alpha_min);
+      }
     }
     __syncthreads();
 
@@ -306,6 +330,8 @@ render_bwd_kernel(const float* __restrict__ feat,
         const float4 fb = f4[1];  // C, opacity, r, g
         const float4 fc = f4[2];  // b, depth, depth_sgview, (pad)
         const blend::Splat g{fa.x, fa.y, fa.z, fa.w, fb.x, fb.y};
+        [[maybe_unused]] blend::Basis co{};
+        if constexpr (kBasis) co = blend::splat_basis(g, ox, oy);
         const float cr = fb.z, cg = fb.w, cb = fc.x, d = fc.y;
         const float d2 = d * d;
         float acc[kRow];
@@ -317,9 +343,14 @@ render_bwd_kernel(const float* __restrict__ feat,
           if (!((mj >> k) & 1u)) continue;  // the same for the whole warp
           if (loc >= lim[k]) continue;
           if constexpr (kCount) ++tested;
-          const float dx = g.x - px[k];
-          const float dy = g.y - py[k];
-          const float power = blend::splat_power(g, dx, dy);
+          float dx, dy, power;
+          if constexpr (kBasis) {
+            power = blend::splat_power_basis(co, pq[k]);
+          } else {
+            dx = g.x - px[k];
+            dy = g.y - py[k];
+            power = blend::splat_power(g, dx, dy);
+          }
           if (power > 0.f) continue;
           const float G = expf(power);
           const float alpha = blend::splat_alpha(g, G, prm);
@@ -328,6 +359,10 @@ render_bwd_kernel(const float* __restrict__ feat,
           if (test_T < prm.t_terminate) {
             lim[k] = 0;
             continue;
+          }
+          if constexpr (kBasis) {  // the direct sums' offsets
+            dx = g.x - (ox + pq[k].qx);
+            dy = g.y - (oy + pq[k].qy);
           }
           // w, s, the prefix and d_alpha in the forward's rounding (the
           // suffix tot_all - pre then cancels as the forward's totals do);
@@ -398,23 +433,40 @@ render_bwd_kernel(const float* __restrict__ feat,
   }
 }
 
+template <int PPT, bool kBasis>
+cudaError_t launch_bwd_form(int n_tiles, cudaStream_t s, const float* feat,
+                            const int* tile_start, const int* tile_stop,
+                            const float* pix, const int* n_contrib,
+                            long long ncon_stride, float* rows,
+                            const Params& prm, int want_med, int want_var,
+                            unsigned long long* pairs) {
+  if (pairs != nullptr) {
+    render_bwd_kernel<PPT, true, kBasis><<<n_tiles, kThreads, 0, s>>>(
+        feat, tile_start, tile_stop, pix, n_contrib, ncon_stride, rows, prm,
+        want_med, want_var, pairs);
+  } else {
+    render_bwd_kernel<PPT, false, kBasis><<<n_tiles, kThreads, 0, s>>>(
+        feat, tile_start, tile_stop, pix, n_contrib, ncon_stride, rows, prm,
+        want_med, want_var, pairs);
+  }
+  return cudaGetLastError();
+}
+
 template <int PPT>
 cudaError_t launch_bwd(int n_tiles, cudaStream_t s, const float* feat,
                        const int* tile_start, const int* tile_stop,
                        const float* pix, const int* n_contrib,
                        long long ncon_stride, float* rows, const Params& prm,
-                       int want_med, int want_var,
+                       int want_med, int want_var, int basis,
                        unsigned long long* pairs) {
-  if (pairs != nullptr) {
-    render_bwd_kernel<PPT, true><<<n_tiles, kThreads, 0, s>>>(
-        feat, tile_start, tile_stop, pix, n_contrib, ncon_stride, rows, prm,
-        want_med, want_var, pairs);
-  } else {
-    render_bwd_kernel<PPT, false><<<n_tiles, kThreads, 0, s>>>(
-        feat, tile_start, tile_stop, pix, n_contrib, ncon_stride, rows, prm,
-        want_med, want_var, pairs);
+  if (basis) {
+    return launch_bwd_form<PPT, true>(n_tiles, s, feat, tile_start,
+                                      tile_stop, pix, n_contrib, ncon_stride,
+                                      rows, prm, want_med, want_var, pairs);
   }
-  return cudaGetLastError();
+  return launch_bwd_form<PPT, false>(n_tiles, s, feat, tile_start, tile_stop,
+                                     pix, n_contrib, ncon_stride, rows, prm,
+                                     want_med, want_var, pairs);
 }
 
 template <int PPT>
@@ -556,8 +608,8 @@ void launch_rows(const float* rows, const int* inv, const int* gauss_start,
 
 // rows [cap, 12] (zero-filled by the caller, 16-byte aligned) of the
 // backward blend.  n_contrib, each pixel's walk limit, is the forward's
-// [T, *] int32 with tile stride ncon_stride and pixel stride 1; pairs may
-// be null.
+// [T, *] int32 with tile stride ncon_stride and pixel stride 1; basis != 0
+// takes the exponent's basis form, as the forward did; pairs may be null.
 extern "C" int render_bwd(const float* feat, const int* tile_start,
                           const int* tile_stop, const float* pix,
                           const int* n_contrib, long long ncon_stride,
@@ -565,8 +617,8 @@ extern "C" int render_bwd(const float* feat, const int* tile_start,
                           int tile_w, int tile_h, int width, int height,
                           float alpha_cap,
                           float alpha_min, float t_terminate, int want_med,
-                          int want_var, unsigned long long* pairs,
-                          void* stream) {
+                          int want_var, int basis,
+                          unsigned long long* pairs, void* stream) {
   const Params prm{tiles_x, tile_w, tile_h, width, height,
                    alpha_cap, alpha_min, t_terminate, tile0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -575,15 +627,18 @@ extern "C" int render_bwd(const float* feat, const int* tile_start,
     case 1:
       return static_cast<int>(launch_bwd<1>(
           n_tiles, s, feat, tile_start, tile_stop, pix, n_contrib,
-          ncon_stride, rows, prm, want_med, want_var, pairs));
+          ncon_stride, rows, prm, want_med, want_var, basis,
+          pairs));
     case 2:
       return static_cast<int>(launch_bwd<2>(
           n_tiles, s, feat, tile_start, tile_stop, pix, n_contrib,
-          ncon_stride, rows, prm, want_med, want_var, pairs));
+          ncon_stride, rows, prm, want_med, want_var, basis,
+          pairs));
     case 4:
       return static_cast<int>(launch_bwd<4>(
           n_tiles, s, feat, tile_start, tile_stop, pix, n_contrib,
-          ncon_stride, rows, prm, want_med, want_var, pairs));
+          ncon_stride, rows, prm, want_med, want_var, basis,
+          pairs));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -62,6 +62,16 @@
 //   that instance's row at the end, with the blend's own expressions.
 // - pairs (optional, null on the main path): a variant of the kernel adds
 //   the (instance, pixel) pairs it tested, for the report beside the bound.
+// - The basis form of the exponent (cfg.splat_basis_power; the TPU kernel's
+//   `basis` path, render_pallas.py:193-200): a compile-time variant
+//   (kBasis).  A warp makes an instance's six coefficients about the
+//   tile's corner once, when it takes the instance (one per jj of its
+//   `todo` loop); each pixel's five basis terms (tile-local coordinates,
+//   exact integers in float32, and their products) are made once and held
+//   in registers in place of its position, so a pair's exponent is five
+//   products and five sums; the culling boxes are the basis form's,
+//   widened for its rounding (blend_common.cuh).  The default
+//   instantiation (kBasis false) is the direct form, unchanged.
 //
 // The per-pair test's expressions live in blend_common.cuh, shared with
 // render_bwd and render_jvp, so every pass makes the same decisions bit for
@@ -133,9 +143,14 @@ static_assert(kBatch <= kThreads, "a thread computes a staged row's box");
 constexpr int kWarps = kThreads / 32;
 // resident blocks an SM: 78 registers a thread, no spill (two blocks, at
 // 112 registers, took 18% longer at the bench scene on an H100)
+// The basis instantiation keeps three blocks: at 80 registers it spills
+// (56 bytes of stores).  Before its basis terms were held per pixel it
+// spilled 88 and still took 7-8% less time than a copy bounded to two
+// blocks (117 registers, no spill; ab_render_fwd.py --basis, at the bench
+// scene and the 500k map step's render, on an H100).
 constexpr int kMinBlocks = 3;
 
-template <int PPT, bool kCount>
+template <int PPT, bool kCount, bool kBasis>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 render_fwd_kernel(const float* __restrict__ feat,
                   const int* __restrict__ tile_start,
@@ -160,13 +175,17 @@ render_fwd_kernel(const float* __restrict__ feat,
   const int tg = prm.tile0 + t;  // the tile's index in the image
   const int tx0 = (tg % prm.tiles_x) * prm.tile_w;
   const int ty0 = (tg / prm.tiles_x) * prm.tile_h;
+  // the basis form's origin: the tile's corner
+  const float ox = (float)tx0, oy = (float)ty0;
 
   // per pixel its position and blend state; bit k of `live`: pixel k lies
   // in the tile and the image and has not terminated.  dep is also the
   // variance's first moment (the sum of d w, the same sum).  The median
   // depth and the crossing's moments are read back from the crossing
-  // instance's row at the end.
+  // instance's row at the end.  The basis form keeps the pixel's basis
+  // terms in place of its position (px = ox + qx exactly).
   float px[PPT], py[PPT], T[PPT];
+  [[maybe_unused]] blend::PixelBasis pq[PPT];
   float c0[PPT], c1[PPT], c2[PPT], dep[PPT], wgt[PPT], vdd[PPT];
   int ncon[PPT], nval[PPT];
   unsigned live = 0;
@@ -179,8 +198,12 @@ render_fwd_kernel(const float* __restrict__ feat,
     const int pxi = tx0 + qi % prm.tile_w;
     const int pyi = ty0 + qi / prm.tile_w;
     if (qi < q && pxi < prm.width && pyi < prm.height) live |= 1u << k;
-    px[k] = (float)pxi;
-    py[k] = (float)pyi;
+    if constexpr (kBasis) {
+      pq[k] = blend::pixel_basis((float)pxi, (float)pyi, ox, oy);
+    } else {
+      px[k] = (float)pxi;
+      py[k] = (float)pyi;
+    }
     T[k] = 1.f;
     c0[k] = c1[k] = c2[k] = dep[k] = wgt[k] = vdd[k] = 0.f;
     ncon[k] = nval[k] = 0;
@@ -206,8 +229,14 @@ render_fwd_kernel(const float* __restrict__ feat,
     }
     const float* sf = s_feat[stage];
     if (threadIdx.x < n) {
-      s_box[threadIdx.x] = blend::cull_box(sf + threadIdx.x * kFeatPad,
-                                           prm.alpha_min);
+      if constexpr (kBasis) {
+        s_box[threadIdx.x] = blend::cull_box_of<true>(
+            sf + threadIdx.x * kFeatPad, prm.alpha_min, ox, oy,
+            (float)(prm.tile_w - 1), (float)(prm.tile_h - 1));
+      } else {
+        s_box[threadIdx.x] = blend::cull_box(sf + threadIdx.x * kFeatPad,
+                                             prm.alpha_min);
+      }
     }
     // the warp's sub-patch boxes over their live pixels; bit k of wlive
     // (the same on every lane): sub-patch k has one
@@ -215,7 +244,14 @@ render_fwd_kernel(const float* __restrict__ feat,
 #pragma unroll
     for (int k = 0; k < PPT; ++k) {
       const bool on = (live >> k) & 1u;
-      const int xi = (int)px[k], yi = (int)py[k];
+      int xi, yi;
+      if constexpr (kBasis) {
+        xi = tx0 + (int)pq[k].qx;
+        yi = ty0 + (int)pq[k].qy;
+      } else {
+        xi = (int)px[k];
+        yi = (int)py[k];
+      }
       const int x0 = __reduce_min_sync(kAll, on ? xi : INT_MAX);
       const int x1 = __reduce_max_sync(kAll, on ? xi : INT_MIN);
       const int y0 = __reduce_min_sync(kAll, on ? yi : INT_MAX);
@@ -251,14 +287,21 @@ render_fwd_kernel(const float* __restrict__ feat,
         const float4 fa = f4[0];  // x, y, A, B
         const float4 fb = f4[1];  // C, opacity, r, g
         const blend::Splat g{fa.x, fa.y, fa.z, fa.w, fb.x, fb.y};
+        [[maybe_unused]] blend::Basis cb{};
+        if constexpr (kBasis) cb = blend::splat_basis(g, ox, oy);
 #pragma unroll
         for (int k = 0; k < PPT; ++k) {
           if (!((mj >> k) & 1u)) continue;  // the same for the whole warp
           if constexpr (kCount) tested += (live >> k) & 1u;
           if (!((live >> k) & 1u)) continue;
-          const float dx = g.x - px[k];
-          const float dy = g.y - py[k];
-          const float power = blend::splat_power(g, dx, dy);
+          float power;
+          if constexpr (kBasis) {
+            power = blend::splat_power_basis(cb, pq[k]);
+          } else {
+            const float dx = g.x - px[k];
+            const float dy = g.y - py[k];
+            power = blend::splat_power(g, dx, dy);
+          }
           if (power > 0.f) continue;
           const float G = expf(power);
           const float alpha = blend::splat_alpha(g, G, prm);
@@ -333,19 +376,34 @@ render_fwd_kernel(const float* __restrict__ feat,
   }
 }
 
+template <int PPT, bool kBasis>
+cudaError_t launch_fwd_form(int n_tiles, cudaStream_t s, const float* feat,
+                            const int* tile_start, const int* tile_stop,
+                            const float* gt, float* out_f, int* out_i,
+                            const Params& prm, unsigned long long* pairs) {
+  if (pairs != nullptr) {
+    render_fwd_kernel<PPT, true, kBasis><<<n_tiles, kThreads, 0, s>>>(
+        feat, tile_start, tile_stop, gt, out_f, out_i, prm, pairs);
+  } else {
+    render_fwd_kernel<PPT, false, kBasis><<<n_tiles, kThreads, 0, s>>>(
+        feat, tile_start, tile_stop, gt, out_f, out_i, prm, pairs);
+  }
+  return cudaGetLastError();
+}
+
 template <int PPT>
 cudaError_t launch_fwd(int n_tiles, cudaStream_t s, const float* feat,
                        const int* tile_start, const int* tile_stop,
                        const float* gt, float* out_f, int* out_i,
-                       const Params& prm, unsigned long long* pairs) {
-  if (pairs != nullptr) {
-    render_fwd_kernel<PPT, true><<<n_tiles, kThreads, 0, s>>>(
-        feat, tile_start, tile_stop, gt, out_f, out_i, prm, pairs);
-  } else {
-    render_fwd_kernel<PPT, false><<<n_tiles, kThreads, 0, s>>>(
-        feat, tile_start, tile_stop, gt, out_f, out_i, prm, pairs);
+                       const Params& prm, int basis,
+                       unsigned long long* pairs) {
+  if (basis) {
+    return launch_fwd_form<PPT, true>(n_tiles, s, feat, tile_start,
+                                      tile_stop, gt, out_f, out_i, prm,
+                                      pairs);
   }
-  return cudaGetLastError();
+  return launch_fwd_form<PPT, false>(n_tiles, s, feat, tile_start, tile_stop,
+                                     gt, out_f, out_i, prm, pairs);
 }
 
 constexpr int kFew = 32;  // distinct instances a pass sums
@@ -525,13 +583,13 @@ __global__ void segment_sum_kernel(const float* __restrict__ vals,
 }  // namespace
 
 // out_f [n_tiles, 9, q] and out_i [n_tiles, 3, q] of the forward blend;
-// pairs may be null.
+// basis != 0 takes the exponent's basis form; pairs may be null.
 extern "C" int render_fwd(const float* feat, const int* tile_start,
                           const int* tile_stop, const float* gt, float* out_f,
                           int* out_i, int n_tiles, int tiles_x, int tile0,
                           int tile_w, int tile_h, int width, int height,
                           float alpha_cap,
-                          float alpha_min, float t_terminate,
+                          float alpha_min, float t_terminate, int basis,
                           unsigned long long* pairs, void* stream) {
   const Params prm{tiles_x, tile_w, tile_h, width, height,
                    alpha_cap, alpha_min, t_terminate, tile0};
@@ -541,15 +599,15 @@ extern "C" int render_fwd(const float* feat, const int* tile_start,
     case 1:
       return static_cast<int>(launch_fwd<1>(n_tiles, s, feat, tile_start,
                                             tile_stop, gt, out_f, out_i, prm,
-                                            pairs));
+                                            basis, pairs));
     case 2:
       return static_cast<int>(launch_fwd<2>(n_tiles, s, feat, tile_start,
                                             tile_stop, gt, out_f, out_i, prm,
-                                            pairs));
+                                            basis, pairs));
     case 4:
       return static_cast<int>(launch_fwd<4>(n_tiles, s, feat, tile_start,
                                             tile_stop, gt, out_f, out_i, prm,
-                                            pairs));
+                                            basis, pairs));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -17,6 +17,13 @@ kernel ``csrc/render_bwd.cu`` on CUDA tensors, ``core_bwd_reference`` (the
 counterpart of ``tile_xla.core_bwd_xla``) on CPU tensors.  Each instance
 belongs to one tile, so every row has one writer and no atomics are needed.
 
+With ``cfg.splat_basis_power`` the splat exponent takes the JAX package's
+basis form (``blend.splat_power`` with a pixel basis about each tile's
+corner), in the plain versions and in the kernels' basis instantiations
+alike, bit for bit; the culling boxes widen for its rounding
+(:func:`cull_extent`).  The dual forward refuses it, as the JAX package's
+does.
+
 ``core_fwd_jvp`` is the dual forward: the forward's outputs plus K pose
 tangents per pixel (:class:`PoseTangents`), from a sorted tangent table
 ``[I, per_k * K]`` gathered by the same rows as the features.  It is the
@@ -70,6 +77,9 @@ BWD_THREADS = 256  # threads of a render_fwd or render_bwd block
 # the absolute widening in pixels
 CULL_REL = 2e-5
 CULL_ABS = 1e-2
+# its widening of tau for the exponent's basis form, relative to the sum of
+# the magnitudes of the expansion's terms (kBasisRel)
+BASIS_REL = 1e-6
 
 launches = {"render_fwd": 0, "tile_scatter_sum": 0, "segment_sum": 0,
             "render_bwd": 0, "segment_sum_rows": 0, "render_jvp": 0}
@@ -115,6 +125,18 @@ class PoseTangents(NamedTuple):
     weight: torch.Tensor   # [T, K, Q]
     median: torch.Tensor   # [T, K, Q]
     t_final: torch.Tensor  # [T, K, Q]
+
+
+def splat_basis(cfg: RasterConfig, px, py):
+    """The keyword arguments of the blend's exponent for tiles of pixel
+    coordinates ``px, py`` [T, Q] (from :func:`pixel_coords`): none for the
+    direct form; with ``cfg.splat_basis_power``, the basis form about each
+    tile's corner, the origin of its first pixel, so that a tile renders
+    the same numbers at any ``tile0``."""
+    if not cfg.splat_basis_power:
+        return {}
+    origin = (px[:, 0], py[:, 0])
+    return dict(basis=blend.moment_basis(px, py, origin), origin=origin)
 
 
 def pixel_coords(n_tiles: int, tiles_x: int, th: int, tw: int, height: int,
@@ -289,6 +311,7 @@ def core_fwd_pixels_reference(table, tile_start, tile_stop, gt_tiles, *,
         start = tile_start[sl].to(torch.int64)
         stop = tile_stop[sl].to(torch.int64)
         px, py, pixmask = px_all[sl], py_all[sl], mask_all[sl]
+        splat = splat_basis(cfg, px, py)
         carry = blend.init_carry(px.shape, 3, table.dtype, dev)
         maxcnt = int((stop - start).max()) if start.numel() else 0
         for k0 in range(0, maxcnt, g):
@@ -300,7 +323,7 @@ def core_fwd_pixels_reference(table, tile_start, tile_stop, gt_tiles, *,
             carry = blend.blend_chunk_fwd(
                 carry, rows[..., 0:2], rows[..., 2:5], rows[..., 5],
                 rows[..., 6:9], rows[..., 9], rows[..., 10], v, px, py,
-                k0, cfg, global_base=(start + k0).to(torch.int32))
+                k0, cfg, global_base=(start + k0).to(torch.int32), **splat)
         gt = gt_tiles[sl]
         outs.append((carry.color, carry.depth, carry.weight, carry.median,
                      blend.finish_var(carry, gt), carry.t_final,
@@ -345,6 +368,7 @@ def core_bwd_reference(table, tile_start, tile_stop, pix, *,
         start = tile_start[sl].to(torch.int64)
         stop = tile_stop[sl].to(torch.int64)
         px, py, pixmask = px_all[sl], py_all[sl], mask_all[sl]
+        splat = splat_basis(cfg, px, py)
         carry = blend.init_bwd_carry(px.shape, table.dtype, dev)
         maxcnt = int((stop - start).max()) if start.numel() else 0
         for k0 in range(0, maxcnt, g):
@@ -357,7 +381,7 @@ def core_bwd_reference(table, tile_start, tile_stop, pix, *,
             carry, r = blend.blend_chunk_bwd(
                 carry, f[..., 0:2], f[..., 2:5], f[..., 5], f[..., 6:9],
                 f[..., 9], v, px, py, pix[sl], cfg, want_med=want_med,
-                want_var=want_var)
+                want_var=want_var, **splat)
             rows[idx[inseg]] = r[inseg]
     return rows
 
@@ -398,7 +422,8 @@ def launch_render_fwd(table, tile_start, tile_stop, gt_tiles, out_f, out_i,
                       width: int, pairs=None, tile0: int = 0):
     """One launch of the ``render_fwd`` kernel into preallocated
     ``out_f`` [T, 9, Q] float32 and ``out_i`` [T, 3, Q] int32 (inputs
-    checked by :func:`core_fwd`).  ``pairs``, a CUDA int64 [1] tensor, if
+    checked by :func:`core_fwd`), its basis-form instantiation when
+    ``cfg.splat_basis_power``.  ``pairs``, a CUDA int64 [1] tensor, if
     given, gets the (instance, pixel) pairs the kernel tested added to
     it."""
     from ._build import load
@@ -410,7 +435,7 @@ def launch_render_fwd(table, tile_start, tile_stop, gt_tiles, out_f, out_i,
             gt_tiles.data_ptr(), out_f.data_ptr(), out_i.data_ptr(),
             tile_start.shape[0], tiles_x, tile0, cfg.tile_w, cfg.tile_h,
             width, height, cfg.alpha_cap, cfg.alpha_min, cfg.t_terminate,
-            pairs_ptr, stream)
+            int(cfg.splat_basis_power), pairs_ptr, stream)
     if rc != 0:
         raise RuntimeError(f"render_fwd launch failed: CUDA error {rc}")
     launches["render_fwd"] += 1
@@ -497,7 +522,8 @@ def launch_render_bwd(table, tile_start, tile_stop, pix, rows, *,
                       want_var: bool = True, n_contrib, pairs=None,
                       tile0: int = 0):
     """One launch of the ``render_bwd`` kernel into ``rows`` [I, 12], which
-    the caller zero-fills (inputs checked by :func:`core_bwd`).
+    the caller zero-fills (inputs checked by :func:`core_bwd`), its
+    basis-form instantiation when ``cfg.splat_basis_power``.
     ``n_contrib`` [T, Q] int32 (unit pixel stride; the forward's
     ``out_i[:, 0]`` is read in place) stops each pixel after its last
     contributor.  ``pairs``, a CUDA int64 [1] tensor, if given, gets the
@@ -514,7 +540,8 @@ def launch_render_bwd(table, tile_start, tile_stop, pix, rows, *,
             rows.data_ptr(),
             tile_start.shape[0], tiles_x, tile0, cfg.tile_w, cfg.tile_h,
             width, height, cfg.alpha_cap, cfg.alpha_min, cfg.t_terminate,
-            int(want_med), int(want_var), pairs_ptr, stream)
+            int(want_med), int(want_var), int(cfg.splat_basis_power),
+            pairs_ptr, stream)
     if rc != 0:
         raise RuntimeError(f"render_bwd launch failed: CUDA error {rc}")
     launches["render_bwd"] += 1
@@ -637,20 +664,35 @@ def core_fwd_jvp_reference(table, tans, tile_start, tile_stop, gt_tiles, *,
             PoseTangents(*cat[10:]))
 
 
-def cull_extent(conic, opacity, alpha_min: float):
+def cull_extent(conic, opacity, alpha_min: float, xy=None, origin=None,
+                tile=None):
     """The half-extents (rx, ry) [N] of ``blend_common.cuh``'s
     ``cull_box``, in its float32 expressions: outside ``|dx| <= rx,
     |dy| <= ry`` a splat's alpha is below ``alpha_min`` at every pixel.
     ``-inf`` (an empty box) where the opacity is below ``alpha_min``,
     ``inf`` where the conic is not positive definite.  ``render_fwd``,
     ``render_bwd`` and ``render_jvp`` skip the pairs outside the box; the
-    tests hold this mirror to the blend's own alpha."""
+    tests hold this mirror to the blend's own alpha.
+
+    With ``origin`` (ox, oy [N], the corners of the tiles the splats at
+    ``xy`` [N, 2] are tested in) and ``tile`` (tile_h, tile_w): the box of
+    the exponent's basis form in that tile (``cull_box_of<true>``), tau
+    grown by ``BASIS_REL`` times the sum of the magnitudes of the
+    expansion's terms over the tile."""
     f32 = lambda v: torch.tensor(v, dtype=torch.float32)
     one = f32(1.0)
     up, down, rel = one + f32(CULL_REL), one - f32(CULL_REL), f32(CULL_REL)
     a_min = f32(alpha_min)
     conic, op = conic.to(torch.float32), opacity.to(torch.float32)
-    tau2 = 2.0 * torch.log(op / a_min) * up + rel
+    if origin is None:
+        tau2 = 2.0 * torch.log(op / a_min) * up + rel
+    else:
+        big_x = (xy[:, 0] - origin[0]).abs() + f32(tile[1] - 1)
+        big_y = (xy[:, 1] - origin[1]).abs() + f32(tile[0] - 1)
+        s = (0.5 * conic[:, 0].abs() * big_x * big_x
+             + 0.5 * conic[:, 2].abs() * big_y * big_y
+             + conic[:, 1].abs() * big_x * big_y)
+        tau2 = 2.0 * (torch.log(op / a_min) + f32(BASIS_REL) * s) * up + rel
     a, c = conic[:, 0] * down, conic[:, 2] * down
     b = conic[:, 1].abs() * up
     det = a * c - b * b
@@ -688,6 +730,57 @@ def cull_boxes(table, alpha_min: float):
         raise RuntimeError(f"render_jvp_cull_boxes launch failed: CUDA error "
                            f"{rc}")
     return boxes
+
+
+def cull_misses(table, tile_start, tile_stop, *, cfg: RasterConfig,
+                tiles_x: int, height: int, width: int, tile0: int = 0,
+                chunk: int = 8192) -> int:
+    """The (instance, in-image pixel) pairs of the binning that the
+    kernels' culling box skips although the blend would not: the pixel lies
+    outside :func:`cull_extent`'s box of the instance (the basis form's box
+    in the instance's tile when ``cfg.splat_basis_power``), yet the
+    exponent, in the form ``cfg`` selects, gives ``power <= 0`` and
+    ``alpha >= alpha_min``.  0 is what the culling promises.  Plain
+    PyTorch on the table's device, ``chunk`` instances at a time."""
+    dev = table.device
+    th, tw = cfg.tile_h, cfg.tile_w
+    seg = (tile_stop - tile_start).to(torch.int64)
+    tiles = torch.repeat_interleave(
+        torch.arange(tile_start.shape[0], device=dev), seg)
+    first = torch.cumsum(seg, 0) - seg
+    inst = (tile_start.to(torch.int64)[tiles] - first[tiles]
+            + torch.arange(tiles.shape[0], device=dev))
+    q = torch.arange(th * tw, device=dev)
+    qx, qy = (q % tw).to(torch.float32), (q // tw).to(torch.float32)
+    misses = 0
+    for c0 in range(0, inst.shape[0], chunk):
+        rows = table[inst[c0:c0 + chunk]]
+        t = tiles[c0:c0 + chunk] + tile0
+        ox = ((t % tiles_x) * tw).to(torch.float32)
+        oy = ((t // tiles_x) * th).to(torch.float32)
+        px, py = ox[:, None] + qx, oy[:, None] + qy            # [N, Q]
+        xy, conic, op = rows[:, 0:2], rows[:, 2:5], rows[:, 5]
+        if cfg.splat_basis_power:
+            rx, ry = cull_extent(conic, op, cfg.alpha_min, xy, (ox, oy),
+                                 (th, tw))
+            power = blend.splat_power(
+                xy[:, None], conic[:, None], px, py,
+                blend.moment_basis(qx, qy, (0.0, 0.0))[None],
+                (ox, oy))[:, 0]
+        else:
+            rx, ry = cull_extent(conic, op, cfg.alpha_min)
+            power = blend.splat_power(xy[:, None], conic[:, None], px,
+                                      py)[:, 0]
+        alpha = torch.clamp_max(op[:, None] * torch.exp(power),
+                                cfg.alpha_cap)
+        x, y = xy[:, 0:1], xy[:, 1:2]
+        rx, ry = rx[:, None], ry[:, None]
+        outside = ((x - rx > px) | (x + rx < px) | (y - ry > py)
+                   | (y + ry < py))
+        live = (power <= 0.0) & (alpha >= cfg.alpha_min) & (px < width) \
+            & (py < height)
+        misses += int((outside & live).sum())
+    return misses
 
 
 def launch_render_jvp(table, tans, tile_start, tile_stop, gt_tiles, out_f,
@@ -729,6 +822,7 @@ def core_fwd_jvp(table, tans, tile_start, tile_stop, gt_tiles, *,
     ``tans`` is the sorted tangent table [I, per_k * K] (per_k 3, or 6 when
     ``full``), gathered by the same rows as ``table``; ``tile0`` as in
     :func:`core_fwd`."""
+    blend.check_direct_for_jvp(cfg)
     kw = dict(cfg=cfg, tiles_x=tiles_x, height=height, width=width,
               full=full, tile0=tile0)
     if table.device.type == "cpu":

@@ -2,8 +2,9 @@
 package's ``ops/oracle.py``).
 
 ``render_oracle`` is small and slow by design: every pixel considers every
-Gaussian in global depth order, with a per-pixel tile-membership mask that
-makes its output comparable to the tiled render op.  It is plain PyTorch,
+Gaussian in global depth order, by default with a per-pixel
+tile-membership mask that makes its output comparable to the tiled render
+op.  It is plain PyTorch,
 so autograd through it is the ground truth that the analytic backward of
 ``ops/rasterize.py`` is held to, for every parameter and the view matrix.
 """
@@ -42,12 +43,14 @@ def render_oracle(means3D, camera: Camera, cfg: RasterConfig = None, *,
                   opacities, scales=None, rotations=None, cov3D_precomp=None,
                   shs=None, sh_degree: int = 0, colors_precomp=None,
                   scale_modifier: float = 1.0, bg=None, gt_depth=None,
+                  tile_mask: bool = True,
                   pixel_chunk: int = 8192) -> RenderOutputs:
     """Render with O(P * pixels) brute force, ``pixel_chunk`` pixels at a
-    time.  Each pixel sees the Gaussians whose tile rectangle covers its
-    tile, as the binning does (the JAX version's ``tile_mask=True``).
-    ``n_contrib`` is the 1-based position of the last contributor in the
-    global depth order."""
+    time.  With ``tile_mask`` (the default) each pixel sees the Gaussians
+    whose tile rectangle covers its tile, as the binning does; without it,
+    every pixel sees every visible Gaussian (the JAX version's
+    ``tile_mask`` either way).  ``n_contrib`` is the 1-based position of
+    the last contributor in the global depth order."""
     cfg = RasterConfig() if cfg is None else cfg
     h, w = camera.height, camera.width
     p = means3D.shape[0]
@@ -81,11 +84,14 @@ def render_oracle(means3D, camera: Camera, cfg: RasterConfig = None, *,
     for q0 in range(0, h * w, pixel_chunk):
         px = px_all[q0:q0 + pixel_chunk]
         py = py_all[q0:q0 + pixel_chunk]
-        tx = torch.floor(px / cfg.tile_w).to(torch.int32)[None, :]
-        ty = torch.floor(py / cfg.tile_h).to(torch.int32)[None, :]
-        valid = (valid_g[:, None]
-                 & (rect_min[:, 0:1] <= tx) & (tx < rect_max[:, 0:1])
-                 & (rect_min[:, 1:2] <= ty) & (ty < rect_max[:, 1:2]))
+        if tile_mask:
+            tx = torch.floor(px / cfg.tile_w).to(torch.int32)[None, :]
+            ty = torch.floor(py / cfg.tile_h).to(torch.int32)[None, :]
+            valid = (valid_g[:, None]
+                     & (rect_min[:, 0:1] <= tx) & (tx < rect_max[:, 0:1])
+                     & (rect_min[:, 1:2] <= ty) & (ty < rect_max[:, 1:2]))
+        else:
+            valid = valid_g
         carry = blend.init_carry(px.shape, 3, dtype, dev)
         carry = blend.blend_chunk_fwd(
             carry, xy, conic, opacity, color, depth, depth_med, valid, px,

@@ -46,6 +46,7 @@ from ..camera import Camera
 from ..config import RasterConfig
 from ..parallel import shard_bin, sharded
 from ..parallel.mesh import axis_size, check_mesh
+from . import blend
 from .binning import Binned, bin_gaussians, default_max_instances
 from .kernels.render import (FEAT, CoreOutputs, core_bwd, core_fwd,
                              core_fwd_jvp)
@@ -252,13 +253,6 @@ def _defaults(means3D, h: int, w: int, bg, gt_depth):
     return bg, gt_depth.detach().reshape(h, w)
 
 
-def _check_direct(cfg: RasterConfig):
-    if cfg.splat_basis_power:
-        raise NotImplementedError(
-            "splat_basis_power=True is not ported: the port evaluates the "
-            "splat exponent in its direct form only")
-
-
 def rasterize(means3D, camera: Camera, cfg: RasterConfig = None, *,
               opacities, scales=None, rotations=None, cov3D_precomp=None,
               shs=None, sh_degree: int = 0, colors_precomp=None,
@@ -293,7 +287,6 @@ def rasterize(means3D, camera: Camera, cfg: RasterConfig = None, *,
     ``shard_bin.band_instance_counts``); ``overflow`` is then any shard's.
     """
     cfg = RasterConfig() if cfg is None else cfg
-    _check_direct(cfg)
     check_mesh(mesh)
     if mesh is not None and shard_binning and binn is not None:
         raise ValueError(
@@ -428,8 +421,12 @@ def rasterize_with_pose_jvp(means3D, camera: Camera, cfg: RasterConfig,
     as in :func:`rasterize`.  ``mesh`` shards the tile grid over
     ``tile_axis`` as :func:`rasterize` does (the light variant only, as in
     the JAX package), bit-equal to the unsharded render.
+
+    The tangents differentiate the direct form of the splat exponent:
+    ``cfg.splat_basis_power`` raises ``ValueError`` ("pose-jvp requires the
+    direct splat path", the JAX package's assertion).
     """
-    _check_direct(cfg)
+    blend.check_direct_for_jvp(cfg)
     check_mesh(mesh)
     if cfg.pose_cov2d_branch and mesh is not None:
         raise ValueError(

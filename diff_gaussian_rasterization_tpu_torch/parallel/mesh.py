@@ -19,7 +19,6 @@ its own: a backend that fails to initialize raises.
 from __future__ import annotations
 
 import datetime
-import socket
 import traceback
 
 import numpy as np
@@ -171,10 +170,22 @@ def all_gather_grad(x, group, rank: int, n: int):
 # --------------------------------------------------------------------------
 
 
-def free_port() -> int:
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+def host_store(timeout: float = 300.0):
+    """A rendezvous store served by this process on localhost, on a port
+    that the store's own bind takes from the operating system (port 0), so
+    no other world can be handed the same port: a port probed free, closed
+    and bound later by a rank can be taken in between by another process
+    (several test workers start worlds at once).  Ranks connect to it with
+    :func:`connect_store` (the serving process may be one of them)."""
+    return dist.TCPStore("localhost", 0, is_master=True,
+                         wait_for_workers=False,
+                         timeout=datetime.timedelta(seconds=timeout))
+
+
+def connect_store(port: int, world: int, timeout: float = 300.0):
+    """A rank's connection to a :func:`host_store` on ``port``."""
+    return dist.TCPStore("localhost", port, world, is_master=False,
+                         timeout=datetime.timedelta(seconds=timeout))
 
 
 def rank_device(rank: int, device_type: str) -> torch.device:
@@ -204,8 +215,9 @@ def _rank_main(rank, fn, args, world, backend, device_type, port, timeout,
         if device_type == "cuda":
             torch.cuda.set_device(rank_device(rank, device_type))
         dist.init_process_group(
-            backend, init_method=f"tcp://localhost:{port}", world_size=world,
-            rank=rank, timeout=datetime.timedelta(seconds=timeout))
+            backend, store=connect_store(port, world, timeout),
+            world_size=world, rank=rank,
+            timeout=datetime.timedelta(seconds=timeout))
         result = _to_host(fn(rank, world, *args))
         queue.put((rank, True, result))
     except BaseException:   # report every failure, then exit non-zero
@@ -220,8 +232,9 @@ class Ranks:
     """The processes of one world started by :func:`start`; :meth:`join`
     waits for their results."""
 
-    def __init__(self, procs, results, nprocs, backend, timeout):
+    def __init__(self, procs, results, nprocs, backend, timeout, store):
         import time
+        self.store = store  # the ranks' rendezvous, served until join ends
         self.procs, self.results = procs, results
         self.nprocs, self.backend, self.timeout = nprocs, backend, timeout
         self.deadline = time.monotonic() + timeout
@@ -277,6 +290,7 @@ class Ranks:
                 if p.is_alive():
                     p.kill()
                     p.join()
+        self.store = None
         if error is not None:
             raise RuntimeError(f"spawn of {nprocs} ranks ({self.backend}): "
                                f"{error}")
@@ -287,7 +301,8 @@ def start(fn, nprocs: int, args=(), *, backend: str, device_type="cpu",
           timeout: float = 300.0, threads: int = None) -> Ranks:
     """Start ``fn(rank, nprocs, *args)`` in ``nprocs`` new processes, one
     world with the default group initialized on ``backend`` (``"gloo"`` or
-    ``"nccl"``, never chosen here) over a free localhost port; on CUDA each
+    ``"nccl"``, never chosen here) that meets at a store this process serves
+    on localhost (:func:`host_store`); on CUDA each
     rank first sets ``cuda:(rank % count)``.  ``fn`` must be importable by
     name (a module-level function).  Returns at once; ``.join()`` on the
     result waits for the ranks (:func:`spawn` does both).
@@ -306,15 +321,16 @@ def start(fn, nprocs: int, args=(), *, backend: str, device_type="cpu",
         threads = max(1, torch.get_num_threads() // nprocs)
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
-    port = free_port()
+    store = host_store(timeout)
     procs = [ctx.Process(target=_rank_main,
                          args=(r, fn, tuple(args), nprocs, backend,
-                               device_type, port, timeout, threads, results),
+                               device_type, store.port, timeout, threads,
+                               results),
                          daemon=True)
              for r in range(nprocs)]
     for p in procs:
         p.start()
-    return Ranks(procs, results, nprocs, backend, timeout)
+    return Ranks(procs, results, nprocs, backend, timeout, store)
 
 
 def spawn(fn, nprocs: int, args=(), **kw):

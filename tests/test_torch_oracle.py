@@ -25,14 +25,18 @@ torch.set_num_threads(2)
 
 
 @pytest.mark.parametrize("ref_var", [False, True])
-def test_oracle_forward_matches_jax(ref_var):
+def test_oracle_forward_matches_jax(ref_var, tile_mask=True):
+    """With the per-pixel tile mask (every pixel sees the Gaussians whose
+    tile rectangle covers its tile; without it, below, every pixel sees
+    every visible Gaussian)."""
     cfg = CFG.replace(ref_depth_var=ref_var)
     scene, cam = make_scene(p=72, h=24, w=32, seed=13, sh_degree=1)
     kw = {k: v for k, v in scene.items() if k != "means3D"}
-    a = jax_render_oracle(scene["means3D"], cam, cfg, pixel_chunk=256, **kw)
+    a = jax_render_oracle(scene["means3D"], cam, cfg, pixel_chunk=256,
+                          tile_mask=tile_mask, **kw)
     b = render_oracle(torch.as_tensor(np.array(scene["means3D"])),
                       port_camera(cam), port_config(cfg), pixel_chunk=200,
-                      **to_torch(kw))
+                      tile_mask=tile_mask, **to_torch(kw))
     n = lambda x: x.detach().numpy()
     for f in ("color", "depth", "depth_median", "depth_var", "opacity_map",
               "gau_uncertainty"):
@@ -64,3 +68,22 @@ def test_oracle_gradients_match_jax_and_rasterize(pose_full, ref_var):
     c = port_grads(scene, cam, cfg, KEYS,
                    lambda o: loss_terms(o, torch.as_tensor(wc), torch))
     assert_grads_close(b, c)
+
+
+def test_oracle_forward_no_tile_mask_matches_jax():
+    """``render_oracle(tile_mask=False)`` against the JAX oracle's."""
+    test_oracle_forward_matches_jax(False, tile_mask=False)
+
+
+def test_tile_mask_matches_no_mask_closely():
+    """``test_oracle.py::test_tile_mask_matches_no_mask_closely`` in the
+    port: the tile mask removes only sub-threshold tails of the 3-sigma
+    rectangles, and the unmasked render sees more of them."""
+    scene, cam = make_scene(p=96, h=32, w=40, seed=2)
+    kw = to_torch({k: v for k, v in scene.items() if k != "means3D"})
+    means = torch.as_tensor(np.array(scene["means3D"]))
+    cfg = port_config(CFG)
+    a = render_oracle(means, port_camera(cam), cfg, tile_mask=True, **kw)
+    b = render_oracle(means, port_camera(cam), cfg, tile_mask=False, **kw)
+    np.testing.assert_allclose(a.color.numpy(), b.color.numpy(), atol=2e-2)
+    assert int(b.n_valid.sum()) >= int(a.n_valid.sum())

@@ -5,8 +5,8 @@ Same scene arrays through ``diff_gaussian_rasterization_tpu``'s
 ``rasterize(..., backend="xla")`` and the port's ``rasterize`` (whose render
 core runs its plain version on CPU tensors), compared at the tolerances of
 ``test_rasterize.assert_outputs_close``.  Also: a model carried across by
-``convert.py``, a PLY round trip, the bench scene's instance count, and the
-loud failure of ``splat_basis_power`` (not ported).  The gradients are
+``convert.py``, a PLY round trip, the bench scene's instance count, and
+``splat_basis_power`` rendering beside the default form.  The gradients are
 held against the JAX package's in ``test_torch_grad.py``.
 """
 
@@ -201,19 +201,33 @@ def test_ply_round_trip(tmp_path):
 
 
 def test_splat_basis_power_raises():
-    """``splat_basis_power=True`` raises; the default config renders and
-    back-propagates to the means."""
+    """The default config and ``splat_basis_power=True`` (once refused,
+    now ported: ``test_torch_basis_power.py`` holds it against the JAX
+    package's Pallas path) both render and back-propagate to the means;
+    the two forms of the exponent agree to rounding, with the same
+    contributors."""
     scene, cam = make_scene(p=32, h=16, w=24, seed=5)
     tkw = to_torch({k: v for k, v in scene.items() if k != "means3D"})
-    means = torch.as_tensor(np.array(scene["means3D"])).requires_grad_(True)
-    out = rasterize(means, port_camera(cam), port_config(CFG), **tkw)
-    assert out.color.requires_grad
-    out.color.sum().backward()
-    assert means.grad is not None and bool(torch.isfinite(means.grad).all())
-    assert float(means.grad.abs().max()) > 0
-    with pytest.raises(NotImplementedError, match="splat_basis_power"):
-        rasterize(means, port_camera(cam),
-                  port_config(CFG.replace(splat_basis_power=True)), **tkw)
+    outs, grads = [], []
+    for flag in (False, True):
+        means = torch.as_tensor(np.array(scene["means3D"])).requires_grad_(
+            True)
+        out = rasterize(means, port_camera(cam),
+                        port_config(CFG.replace(splat_basis_power=flag)),
+                        **tkw)
+        assert out.color.requires_grad
+        out.color.sum().backward()
+        assert means.grad is not None
+        assert bool(torch.isfinite(means.grad).all())
+        assert float(means.grad.abs().max()) > 0
+        outs.append(out)
+        grads.append(means.grad)
+    direct, basis = outs
+    np.testing.assert_allclose(basis.color.detach().numpy(),
+                               direct.color.detach().numpy(), atol=1e-4)
+    np.testing.assert_allclose(grads[1].numpy(), grads[0].numpy(),
+                               rtol=1e-3, atol=2e-4)
+    assert torch.equal(basis.n_contrib, direct.n_contrib)
 
 
 def test_track_off_map_off_detach():

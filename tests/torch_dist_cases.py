@@ -20,7 +20,7 @@ import torch.distributed as dist
 from diff_gaussian_rasterization_tpu_torch.camera import Camera
 from diff_gaussian_rasterization_tpu_torch.config import RasterConfig
 from diff_gaussian_rasterization_tpu_torch.models import lie
-from diff_gaussian_rasterization_tpu_torch.parallel.mesh import (free_port,
+from diff_gaussian_rasterization_tpu_torch.parallel.mesh import (host_store,
                                                                   make_mesh)
 
 OUT_FIELDS = ("color", "depth", "depth_median", "depth_var", "opacity_map",
@@ -32,8 +32,7 @@ OUT_FIELDS = ("color", "depth", "depth_median", "depth_var", "opacity_map",
 def one_rank_world():
     """A world of one rank (gloo) in this process, for the meshed paths'
     checks that need no second rank."""
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:"
-                            f"{free_port()}", world_size=1, rank=0)
+    dist.init_process_group("gloo", store=host_store(), world_size=1, rank=0)
     try:
         yield
     finally:
