@@ -135,11 +135,25 @@ the tracking benchmark's frame (``bench_tracking.py``: 100,000 Gaussians,
    forward + backward times (unsharded, tile-sharded, and the collectives
    inside it, CUDA events); then a one-rank NCCL world's tile-sharded
    bench render bit-equal to the unsharded.  Two ranks share one card
-   and gloo stages through the host: no speedup is expected.
+   and gloo stages through the host: no speedup is expected;
+8. the splat exponent's basis form (``RasterConfig.splat_basis_power``):
+   ``render_fwd`` and ``render_bwd``'s basis instantiations against their
+   plain versions and timed in turns with the direct ones, and the render
+   op and a ``map_step`` with the flag;
+9. the benchmark drivers (``examples/bench.py``, ``bench_tracking.py``,
+   ``bench_mapping.py``), each run as a user runs it (``python -m``, a
+   process of its own) at its defaults, the JAX drivers' record
+   configurations, and ``bench --ranks 2 --backend gloo`` on the one
+   card: exit code 0, exactly one JSON line with the JAX driver's metric
+   and unit, a finite positive value, the samples' spread, the card's name
+   and power limit (in watts), the driver's guard (no overflow and finite
+   gradients; the pose error falls, below 1e-3; the loss falls) and phase
+   3's kernel launches a step; each line echoed, its mean and median
+   printed beside this script's own time of the same configuration.
 
 Prints the card's name and power limit, a ``kernels`` JSON line, a
-``slam`` JSON line, a ``mesh`` JSON line, and last the line
-``{"ok": true, "device": {...}}``.
+``slam`` JSON line, a ``mesh`` JSON line, a ``drivers`` JSON line, and
+last the line ``{"ok": true, "device": {...}}``.
 Exits non-zero, without that line, when there is no CUDA device or any
 phase fails.
 """
@@ -1163,6 +1177,7 @@ def tracking_times(st, dev, card):
     ms_track = time_ms(lambda: track(ts.cfg), iters=5, warmup=1)
     ms_track_full = time_ms(lambda: track(st["variants"]["full"]["cfg"]),
                             iters=5, warmup=1)
+    st["ms_track"] = ms_track
     log(f"[time] {card}: one rasterize_with_pose_jvp (K=6, frozen binning) "
         f"{ms_dual:.3f} ms, of which pose_jvp_tables {ms_tables:.3f} ms "
         f"(its preprocess alone, prepare: {ms_prep:.3f} ms); ms per tracked "
@@ -2712,6 +2727,124 @@ def basis_phase(dev, check, card, reg_lines, bench, mapped, core_kw,
     return entries
 
 
+# Phase 9: the benchmark drivers (examples/bench*.py), each run as a user
+# runs it, ``python -m`` in a process of its own from the repository's
+# root (which frees its memory on exit), at its defaults: the JAX drivers'
+# record configurations; and bench tile-sharded over two gloo ranks on the
+# one card (NCCL refuses two ranks on one card), cut to 3 samples of 2
+# steps.  Each: (tag, module, arguments, the JAX driver's metric, unit).
+DRIVERS = (
+    ("bench", "bench", (), "fwd_bwd_rasterizations_per_sec_1200x680",
+     "renders/s"),
+    ("bench_ranks2", "bench", ("--ranks", "2", "--backend", "gloo",
+                               "--samples", "3", "--inner", "2"),
+     "fwd_bwd_rasterizations_per_sec_1200x680", "renders/s"),
+    ("bench_tracking", "bench_tracking", (),
+     "tracking_steps_per_sec_1200x680", "tracked frames/s"),
+    ("bench_mapping", "bench_mapping", (),
+     "mapping_steps_per_sec_1200x680_500k", "map steps/s"),
+)
+DRIVER_TIMEOUT = 600  # seconds a driver may take
+
+
+def run_driver(module, argv):
+    """``python -m diff_gaussian_rasterization_tpu_torch.examples.<module>
+    <argv>`` from the repository's root, in a session of its own (its
+    ranks with it are killed at the time limit): (exit code, stdout,
+    stderr, seconds)."""
+    import os
+    import signal
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m",
+           f"diff_gaussian_rasterization_tpu_torch.examples.{module}", *argv]
+    t0 = time.time()
+    proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=DRIVER_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        err += f"\n[chip_smoke] killed after {DRIVER_TIMEOUT} s"
+    return proc.returncode, out, err, time.time() - t0
+
+
+def driver_guard(tag, line, want):
+    """The checks of one driver's line beyond its metric and samples: its
+    own guard (no error; bench: no overflow; tracking: the pose error
+    falls, below 1e-3 as phase 3 checks; mapping: the loss falls), the
+    card's name and power limit, and its kernel launches a step as phase
+    3 counted them on the same path (``want``; the sharded ranks: one
+    render_fwd, render_bwd and tile_scatter_sum a rank a step)."""
+    ok = "error" not in line and bool(line.get("card")) \
+        and str(line.get("power_limit")).endswith(" W")
+    launches = line.get("launches", {})
+    if tag == "bench":
+        ok &= line["instances"] <= line["max_instances"]
+    elif tag == "bench_ranks2":
+        ok &= line["devices"] == 2 and len(line["rank_median_ms"]) == 2
+        want = {k: 1.0 for k in ("render_fwd", "render_bwd",
+                                 "tile_scatter_sum")}
+        launches = {k: launches.get(k) for k in want}
+    elif tag == "bench_tracking":
+        ok &= line["pose_err_after"] < min(line["pose_err_before"], 1e-3)
+    elif tag == "bench_mapping":
+        ok &= line["loss_step1"] < line["loss_step0"]
+    return ok and launches == want
+
+
+def driver_phase(check, want, own):
+    """Phase 9: every driver of DRIVERS run in its own process; its line
+    checked (exit code 0, exactly one JSON line on stdout, the JAX
+    driver's metric and unit, a finite positive value, the spread, its
+    guard) and echoed, its mean and median printed beside this script's
+    own time of the same configuration (``own``: a comparison, not a
+    check: the timers and the timed work differ).  Returns the lines by
+    tag."""
+    import math
+    lines = {}
+    for tag, module, argv, metric, unit in DRIVERS:
+        rc, out, err, secs = run_driver(module, argv)
+        printed = [x for x in out.splitlines() if x.strip()]
+        try:
+            line = json.loads(printed[0]) if len(printed) == 1 else None
+        except ValueError:
+            line = None
+        log(f"[driver] {tag}: python -m ...examples.{module} "
+            f"{' '.join(argv)} exited {rc} after {secs:.1f} s")
+        check(rc == 0, f"driver {tag}: exit code 0")
+        check(isinstance(line, dict),
+              f"driver {tag}: exactly one JSON line on stdout")
+        if rc != 0 or not isinstance(line, dict):
+            log(f"[driver] {tag}: stdout {out[-2000:]!r}; stderr tail "
+                f"{err[-4000:]}")
+            continue
+        log(f"[driver] {tag}: {printed[0]}")
+        lines[tag] = dict(line, seconds=secs)
+        value = line.get("value")
+        check(line.get("metric") == metric and line.get("unit") == unit,
+              f"driver {tag}: the JAX driver's metric {metric!r} and unit "
+              f"{unit!r}")
+        check(isinstance(value, (int, float)) and math.isfinite(value)
+              and value > 0 and "spread" in line,
+              f"driver {tag}: a finite value > 0 and the samples' spread")
+        try:
+            ok = driver_guard(tag, line, want.get(tag))
+        except (KeyError, TypeError) as e:
+            ok = False
+            log(f"[driver] {tag}: a field is missing: {e!r}")
+        check(ok, f"driver {tag}: its guard holds, the card's name and "
+                  f"power limit are in its line, and it launched the "
+                  f"kernels of its path")
+        log(f"[driver] {tag}: mean {line.get('mean_ms')} ms a step, "
+            f"median {line.get('median_ms')} "
+            f"(min {line.get('min_ms')}, max {line.get('max_ms')}, spread "
+            f"{line.get('spread')}, {line.get('samples')} samples, host "
+            f"clock); this script's {own[tag]}")
+    return lines
+
+
 def main():
     import torch
 
@@ -3117,6 +3250,28 @@ def main():
                                 core_kw, means, kw, cam, cfg, max_inst, wc,
                                 model, opt, dstate, map_args)
 
+    # ---- 9. the benchmark drivers -------------------------------------
+    log(f"[phase] 9 starts at +{time.time() - t_main:.1f} s")
+    t9 = time.time()
+    per_step = lambda c, n: {k: v / n for k, v in c.items()}
+    tile_ms = ", ".join(f"{t['fwd_bwd_tile_ms']:.3f}"
+                        for t in mesh["fwd_bwd"])
+    drivers = driver_phase(check, want={
+        "bench": per_step(counts_fb, 2),
+        "bench_tracking": per_step(trk["counts"]["light"], 1),
+        "bench_mapping": per_step(counts_map, 5)}, own={
+        "bench": f"forward + backward at 100k {ms_fb:.3f} ms (phase 4, "
+                  f"CUDA events over 10 calls; phase 3's loss, every leaf's "
+                  f"gradient)",
+        "bench_ranks2": f"tile-sharded forward + backward a rank "
+                        f"{tile_ms} ms (phase 7, CUDA events; binning not "
+                        f"sharded)",
+        "bench_tracking": f"tracked frame {trk['ms_track']:.3f} ms (phase "
+                          f"4, CUDA events over 5 frames)",
+        "bench_mapping": f"map_step at 500k {ms_map:.3f} ms (phase 4, CUDA "
+                         f"events over 3 steps)"})
+    log(f"[phase] 9 took {time.time() - t9:.1f} s")
+
     # the largest errors over both scales' comparisons and the SLAM run's
     err_fwd, err_bwd, err_rows, err_u, err_ts = (
         max(bench[k], mapped[k], slam_errs[k])
@@ -3186,6 +3341,10 @@ def main():
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"slam": slam}))
     log(json.dumps({"mesh": mesh}))
+    log(json.dumps({"drivers": {
+        tag: {k: d.get(k) for k in ("value", "mean_ms", "median_ms",
+                                    "min_ms", "max_ms", "spread", "seconds")}
+        for tag, d in drivers.items()}}))
     if failures:
         log(f"FAILED: {failures}")
         return 1

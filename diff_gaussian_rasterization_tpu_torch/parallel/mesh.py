@@ -12,7 +12,10 @@ these on CPU and CUDA tensors.
 
 ``spawn`` starts the ranks of one world on this host (tests, examples,
 ``chip_smoke.py``), with the backend given explicitly; ``make_mesh`` builds
-the mesh over the initialized default group.  Neither switches backend on
+the mesh over the initialized default group.  Both run on the card unless
+the caller names the CPU (``device="cpu"``, ``device_type="cpu"``): with no
+device named and no CUDA device present they raise, as the JAX package's
+``make_mesh`` takes the accelerator's devices.  Neither switches backend on
 its own: a backend that fails to initialize raises.
 """
 
@@ -27,16 +30,18 @@ import torch.distributed as dist
 
 
 def make_mesh(shape=None, axis_names=("kf", "tile"), *, backend=None,
-              device="cpu"):
+              device="cuda"):
     """A ``DeviceMesh`` of ``shape`` over the initialized default group.
 
     ``shape=None`` puts every rank on the last axis.  ``device`` is the
-    device type of the mesh (``"cpu"`` or ``"cuda"``); each rank's CUDA
+    device type of the mesh: ``"cuda"`` (the default; raises where there is
+    no CUDA device) or ``"cpu"``, which must be named.  Each rank's CUDA
     device is the one it has set (``spawn`` sets ``cuda:(rank % count)``).
     ``backend``, when given, must be the default group's backend.
     """
     from torch.distributed.device_mesh import init_device_mesh
 
+    dev_type = mesh_device_type(device)
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialized default process "
                            "group: start the ranks with parallel.mesh.spawn "
@@ -51,9 +56,20 @@ def make_mesh(shape=None, axis_names=("kf", "tile"), *, backend=None,
     if int(np.prod(shape)) != n or len(shape) != len(axis_names):
         raise ValueError(f"mesh shape {shape} with axes {axis_names} does "
                          f"not cover the world of {n} ranks")
-    dev_type = torch.device(device).type
     return init_device_mesh(dev_type, shape,
                             mesh_dim_names=tuple(axis_names))
+
+
+def mesh_device_type(device) -> str:
+    """The device type of ``device``; a CUDA one only where CUDA is
+    available (``RuntimeError`` otherwise: the CPU is never taken in its
+    place)."""
+    dev_type = torch.device(device).type
+    if dev_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("the mesh runs on CUDA devices and none is "
+                           "available: name device='cpu' (device_type='cpu' "
+                           "for spawn) to run it on the CPU")
+    return dev_type
 
 
 def parse_mesh(spec: str):
@@ -297,13 +313,15 @@ class Ranks:
         return [got[r] for r in range(nprocs)]
 
 
-def start(fn, nprocs: int, args=(), *, backend: str, device_type="cpu",
+def start(fn, nprocs: int, args=(), *, backend: str, device_type="cuda",
           timeout: float = 300.0, threads: int = None) -> Ranks:
     """Start ``fn(rank, nprocs, *args)`` in ``nprocs`` new processes, one
     world with the default group initialized on ``backend`` (``"gloo"`` or
     ``"nccl"``, never chosen here) that meets at a store this process serves
-    on localhost (:func:`host_store`); on CUDA each
-    rank first sets ``cuda:(rank % count)``.  ``fn`` must be importable by
+    on localhost (:func:`host_store`).  ``device_type`` is ``"cuda"`` (the
+    default: each rank first sets ``cuda:(rank % count)``; raises before any
+    process starts where there is no CUDA device) or ``"cpu"``, which must
+    be named.  ``fn`` must be importable by
     name (a module-level function).  Returns at once; ``.join()`` on the
     result waits for the ranks (:func:`spawn` does both).
 
@@ -317,6 +335,7 @@ def start(fn, nprocs: int, args=(), *, backend: str, device_type="cpu",
     """
     import torch.multiprocessing as mp
 
+    device_type = mesh_device_type(device_type)
     if threads is None:
         threads = max(1, torch.get_num_threads() // nprocs)
     ctx = mp.get_context("spawn")

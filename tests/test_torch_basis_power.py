@@ -459,7 +459,7 @@ def test_meshed_rasterize_basis_one_rank():
 
     base, g = run()
     with one_rank_world():
-        mesh = make_mesh((1,), ("tile",), backend="gloo")
+        mesh = make_mesh((1,), ("tile",), backend="gloo", device="cpu")
         for sb in (False, True):
             out, gm = run(mesh=mesh, shard_binning=sb)
             assert torch.equal(out.color, base.color), sb

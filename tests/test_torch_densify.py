@@ -269,7 +269,8 @@ def test_mapping_round_matches_jax(monkeypatch):
         slam.mapping_round(tm, opt, td, (t(views), t(rgbs), t(depths)),
                            port_config(cfg), mcfg_t, cam_t, mesh=object())
     with one_rank_world():
-        mesh = make_mesh((1, 1), ("kf", "tile"), backend="gloo")
+        mesh = make_mesh((1, 1), ("kf", "tile"), backend="gloo",
+                         device="cpu")
         tm2 = gaussian_model_from_numpy(fields, device="cpu")
         td2, tl2 = slam.mapping_round(
             tm2, slam.make_map_optimizer(tm2, mcfg_t),

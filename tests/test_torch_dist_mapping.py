@@ -72,7 +72,8 @@ def world():
     ranks = spawn(cases.mapping_cases, N,
                   (np_start, tuple(np.asarray(x) for x in kf), np_cam,
                    dataclasses.asdict(cfg), MCFG, MESHES),
-                  backend="gloo", timeout=400, threads=1)
+                  backend="gloo", device_type="cpu", timeout=400,
+                  threads=1)
 
     mcfg = JaxMappingConfig(**MCFG)
     jm, _, jd, jl = mapping_round(

@@ -77,7 +77,8 @@ def world():
                   tanfovy=cam.tanfovy, height=cam.height, width=cam.width)
     ranks = spawn(cases.render_cases, N,
                   (np_scene, np_cam, dataclasses.asdict(CFG)),
-                  backend="gloo", timeout=240, threads=1)
+                  backend="gloo", device_type="cpu", timeout=240,
+                  threads=1)
     jm = jmesh(shape=(1, len(jax.devices())), axis_names=("kf", "tile"))
     return dict(ranks=ranks, scene=scene, cam=cam,
                 jax_one=jax_render(scene, cam, None, False),

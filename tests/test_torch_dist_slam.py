@@ -52,7 +52,8 @@ def world():
     ranks = start(cases.slam_cases, 2,
                   (np_views, np_frames, np_cam, dataclasses.asdict(cfg), LOOP,
                    TRACK, MAP, (2, 1), ("kf", "tile")),
-                  backend="gloo", timeout=600, threads=1)
+                  backend="gloo", device_type="cpu", timeout=600,
+                  threads=1)
     scfg = jrunner.SLAMConfig(raster=cfg,
                               tracking=jslam.TrackingConfig(**TRACK),
                               mapping=jslam.MappingConfig(**MAP), **LOOP)

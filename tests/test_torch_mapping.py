@@ -231,7 +231,8 @@ def test_map_step_matches_jax():
                       map_axis="map")
     models = []
     with one_rank_world():
-        mesh = make_mesh((1, 1), ("kf", "map"), backend="gloo")
+        mesh = make_mesh((1, 1), ("kf", "map"), backend="gloo",
+                         device="cpu")
         for kw in ({}, dict(mesh=mesh, map_axis="map")):
             m = gaussian_model_from_numpy(fields, device="cpu")
             loss, _, _ = slam.map_step(

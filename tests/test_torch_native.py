@@ -124,7 +124,7 @@ def test_refine_poses_mesh_raises():
     with pytest.raises(TypeError):
         sharded.refine_poses_sharded(noisy, edges, zs, mesh=object())
     with one_rank_world():
-        mesh = make_mesh((1,), ("kf",), backend="gloo")
+        mesh = make_mesh((1,), ("kf",), backend="gloo", device="cpu")
         got = sharded.refine_poses_sharded(noisy, edges, zs, mesh=mesh)
     assert torch.equal(got, sharded.refine_poses_sharded(noisy, edges, zs))
 

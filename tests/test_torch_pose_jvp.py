@@ -116,7 +116,7 @@ def test_pose_jvp_overflow_reported():
         rasterize_with_pose_jvp(means, tcam, port_config(CFG), basis,
                                 mesh=object(), **kw)
     with one_rank_world():
-        mesh = make_mesh((1,), ("tile",), backend="gloo")
+        mesh = make_mesh((1,), ("tile",), backend="gloo", device="cpu")
         with pytest.raises(ValueError):
             rasterize_with_pose_jvp(means, tcam, port_config(CFG).replace(
                 pose_cov2d_branch=True), basis, mesh=mesh, **kw)

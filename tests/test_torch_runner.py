@@ -514,7 +514,7 @@ def test_mesh_raises():
     state = copy.deepcopy(meshed)
     with one_rank_world():
         scfg = loop_config(mesh=make_mesh((1, 1), ("kf", "tile"),
-                                          backend="gloo"),
+                                          backend="gloo", device="cpu"),
                            refine_track_iters=2)
         runner.slam_step(meshed, frames[1], ct, scfg, 1)
         runner.refine_keyframes(meshed, scfg, ct)

@@ -130,7 +130,8 @@ def test_track_frame_sharded_raises(world):
     one = slam.track_frame(tm, tview0, tframe, port_config(CFG), tcfg,
                            world["cam"])
     with one_rank_world():
-        mesh = make_mesh((1, 1), ("tile", "map"), backend="gloo")
+        mesh = make_mesh((1, 1), ("tile", "map"), backend="gloo",
+                         device="cpu")
         meshed = slam.track_frame(tm, tview0, tframe, port_config(CFG),
                                   tcfg, world["cam"], mesh=mesh,
                                   map_axis="map")

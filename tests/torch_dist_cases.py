@@ -72,7 +72,7 @@ def render_cases(rank, n, scene, cam, cfg_kw):
     from diff_gaussian_rasterization_tpu_torch.parallel.shard_bin import (
         band_instance_counts)
 
-    mesh = make_mesh((1, n), ("kf", "tile"), backend="gloo")
+    mesh = make_mesh((1, n), ("kf", "tile"), backend="gloo", device="cpu")
     cfg = RasterConfig(**cfg_kw)
     kw = {k: _t(v) for k, v in scene.items() if k != "means3D"}
 
@@ -167,7 +167,7 @@ def mapping_cases(rank, n, start, kf, cam, cfg_kw, mcfg_kw, meshes):
 
     res = {"one": run(None, None)}
     for shape, names, map_axis, budget in meshes:
-        mesh = make_mesh(shape, names, backend="gloo")
+        mesh = make_mesh(shape, names, backend="gloo", device="cpu")
         res[mesh_key(shape, names)] = run(mesh, map_axis, budget)
     return res
 
@@ -180,7 +180,8 @@ def slam_cases(rank, n, views, frames, cam, cfg_kw, scfg_kw, tcfg_kw,
     from diff_gaussian_rasterization_tpu_torch.models.slam import (
         Frame, MappingConfig, TrackingConfig)
 
-    mesh = make_mesh(mesh_shape, mesh_names, backend="gloo")
+    mesh = make_mesh(mesh_shape, mesh_names, backend="gloo",
+                     device="cpu")
     scfg = SLAMConfig(raster=RasterConfig(**cfg_kw),
                       tracking=TrackingConfig(**tcfg_kw),
                       mapping=MappingConfig(**mcfg_kw), mesh=mesh,
@@ -190,3 +191,17 @@ def slam_cases(rank, n, views, frames, cam, cfg_kw, scfg_kw, tcfg_kw,
     return dict(est_views=torch.stack(state.est_views),
                 kf_idx=np.asarray(state.kf_idx),
                 model=model_arrays(state.model))
+
+
+def bench_cases(rank, n, argv):
+    """``examples/bench.py``'s first step on this rank of a ``("tile",)``
+    mesh, tile-sharded with sharded binning as ``bench --ranks n`` runs it:
+    the loss, the outputs and the gradients w.r.t. the means and the
+    view."""
+    from diff_gaussian_rasterization_tpu_torch.examples import bench
+    args = bench.parse_args(argv)
+    mesh = make_mesh((n,), ("tile",), backend="gloo", device="cpu")
+    means, kw, cam, cfg = bench.scene(args, torch.device("cpu"))
+    loss, out, gm, gv = bench.fwd_bwd(means, cam.viewmatrix, cam, cfg, kw,
+                                      mesh=mesh, shard_binning=True)
+    return dict(loss=loss, g_means=gm, g_view=gv, **_fields(out))
