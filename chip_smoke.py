@@ -149,11 +149,24 @@ the tracking benchmark's frame (``bench_tracking.py``: 100,000 Gaussians,
    and power limit (in watts), the driver's guard (no overflow and finite
    gradients; the pose error falls, below 1e-3; the loss falls) and phase
    3's kernel launches a step; each line echoed, its mean and median
-   printed beside this script's own time of the same configuration.
+   printed beside this script's own time of the same configuration;
+10. the profiling tools (``examples/prof*.py``), each run as a user runs
+   it (``python -m``, a process of its own) on the bench scene at full
+   width, cut to a few steps: exit code 0, JSON lines only on stdout,
+   each with the card's name and power limit; ``prof``'s five stages,
+   ``prof_bin``'s seven and ``prof_jvp``'s three with finite positive host
+   and device times; ``prof_bin``'s last stage bit-equal to
+   ``bin_gaussians`` + the gather here on the card; ``prof_trace``'s table
+   naming ``render_fwd``, ``tile_scatter_sum``, ``render_bwd`` and
+   ``segment_sum_rows`` (F = 2 and 12) with phase 3's launches a step;
+   ``prof_jvp``'s dual renders one ``render_jvp`` launch a step;
+   ``prof_track``'s table; ``prof_ab`` on ``tile_h=16 tile_w=16``, and its
+   refusal of a TPU-only field.
 
 Prints the card's name and power limit, a ``kernels`` JSON line, a
-``slam`` JSON line, a ``mesh`` JSON line, a ``drivers`` JSON line, and
-last the line ``{"ok": true, "device": {...}}``.
+``slam`` JSON line, a ``mesh`` JSON line, a ``drivers`` JSON line, a
+``prof`` JSON line, and last the line ``{"ok": true, "device":
+{...}}``.
 Exits non-zero, without that line, when there is no CUDA device or any
 phase fails.
 """
@@ -164,6 +177,9 @@ import sys
 import time
 
 import numpy as np
+
+from diff_gaussian_rasterization_tpu_torch.utils.profiling import (
+    device_events, device_us, host_syncs, profile_breakdown)
 
 # The JAX package's count of the bench scene's tile instances (seed 0, 100k
 # Gaussians, 1200x680, 32x32 tiles): 234,076 on the TPU (BENCH_r05.json),
@@ -269,21 +285,7 @@ def device_ms(fn, iters=20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(_dev_us(e) for e in _device_events(prof)) / 1e3 / iters
-
-
-def _dev_us(e):
-    return getattr(e, "self_device_time_total",
-                   getattr(e, "self_cuda_time_total", 0.0))
-
-
-def _device_events(prof):
-    """The profile's device-side events (kernels, copies, fills): the
-    operator-level ones repeat their time, and so do the device ranges of
-    ``record_function`` annotations (``Optimizer.step#Adam.step``)."""
-    return [e for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA") and _dev_us(e) > 0
-            and not getattr(e, "is_user_annotation", False)]
+    return sum(device_us(e) for e in device_events(prof)) / 1e3 / iters
 
 
 def compare_core(k, p, tol_rtol=1e-4, tol_atol=2e-5):
@@ -812,27 +814,6 @@ def grads_close(a, b, rtol, atol):
         err = max(err, float((x - y).abs().max()))
         ratio[k] = float(((x - y).abs() / (atol + rtol * y.abs())).max())
     return err, ratio
-
-
-def profile_breakdown(fn, n=3, top=12):
-    """Device time by kernel over ``n`` calls of ``fn`` (torch.profiler),
-    and the device's busy share of the host-clock window."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = sorted(_device_events(prof), key=_dev_us, reverse=True)
-    busy_ms = sum(_dev_us(e) for e in rows) / 1e3
-    lines = [f"{_dev_us(e) / 1e3 / n:9.4f} ms/call  x{e.count // n:<4d} "
-             f"{e.key[:90]}" for e in rows[:top]]
-    return wall_ms / n, busy_ms / n, lines
 
 
 def compare_tangents(tk, tp, td, tile_ok, tile_ok_d):
@@ -1434,32 +1415,6 @@ def slam_kernels(state, scfg, cam_t, frame, check):
     return errs
 
 
-def host_syncs(fn, n=1):
-    """The host's waits on the card in ``fn()``, ``n`` units of work: every
-    synchronizing CUDA call warns in the sync debug mode.  Returns the
-    count a unit and the ten busiest call sites (file:line, count a
-    unit)."""
-    import warnings
-    from collections import Counter
-
-    import torch
-    sites = Counter()
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            fn()
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    for w in caught:
-        if "synchroniz" in str(w.message):
-            sites[f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}"] += 1
-    return (sum(sites.values()) / n,
-            {k: v / n for k, v in sites.most_common(10)})
-
-
 def slam_record(dev, check, card):
     """Phase 5b: ``run_slam`` at ``examples/bench_ate.py``'s record
     configuration (240x320, ``replica_like_model(seed=0, wall_res=56)``,
@@ -1553,16 +1508,16 @@ def slam_record(dev, check, card):
         torch.cuda.synchronize()
         prof_wall = (time.perf_counter() - t2) * 1e3
     per_frame = {k: v / 3 for k, v in render.launches.items()}
-    rows = sorted(_device_events(prof), key=_dev_us, reverse=True)
+    rows = sorted(device_events(prof), key=device_us, reverse=True)
     log(f"[slam] the three profiled frames took {prof_wall / 1e3:.1f} s, "
         f"the profile {time.perf_counter() - t3:.1f} s with its read-back")
-    busy = sum(_dev_us(e) for e in rows) / 1e3
+    busy = sum(device_us(e) for e in rows) / 1e3
     # the port's kernels' device time a frame, by kernel function
     kernel_ms = {}
     for e in rows:
         name = next((k for k in SLAM_KERNEL_FNS if k in e.key), None)
         if name is not None:
-            kernel_ms[name] = kernel_ms.get(name, 0.0) + _dev_us(e) / 3e3
+            kernel_ms[name] = kernel_ms.get(name, 0.0) + device_us(e) / 3e3
     log(f"[profile] {card}: SLAM frames {i0 + 1}-{i0 + 3} (the last "
         f"keyframes {state.kf_idx[-2:]}, each with its mapping round): "
         f"{prof_wall / 3:.3f} ms a frame on the host "
@@ -1573,7 +1528,7 @@ def slam_record(dev, check, card):
         f"time a frame {json.dumps(kernel_ms)} ms; device time by kernel a "
         f"frame:")
     for e in rows[:12]:
-        log(f"[profile]   {_dev_us(e) / 1e3 / 3:9.4f} ms  "
+        log(f"[profile]   {device_us(e) / 1e3 / 3:9.4f} ms  "
             f"x{e.count / 3:<6.1f} {e.key[:90]}")
     def three_frames():
         st = state
@@ -2747,27 +2702,39 @@ DRIVERS = (
 DRIVER_TIMEOUT = 600  # seconds a driver may take
 
 
-def run_driver(module, argv):
+def start_driver(module, argv):
     """``python -m diff_gaussian_rasterization_tpu_torch.examples.<module>
-    <argv>`` from the repository's root, in a session of its own (its
-    ranks with it are killed at the time limit): (exit code, stdout,
-    stderr, seconds)."""
+    <argv>`` started from the repository's root, in a session of its own
+    (its ranks with it are killed at the time limit): ``(process, start
+    time)``."""
     import os
-    import signal
     root = os.path.dirname(os.path.abspath(__file__))
     cmd = [sys.executable, "-m",
            f"diff_gaussian_rasterization_tpu_torch.examples.{module}", *argv]
-    t0 = time.time()
-    proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
+    return subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True,
-                            start_new_session=True)
+                            start_new_session=True), time.time()
+
+
+def wait_driver(started):
+    """A started driver's (exit code, stdout, stderr, seconds), killed
+    DRIVER_TIMEOUT seconds after its start."""
+    import os
+    import signal
+    proc, t0 = started
     try:
-        out, err = proc.communicate(timeout=DRIVER_TIMEOUT)
+        out, err = proc.communicate(
+            timeout=max(1.0, DRIVER_TIMEOUT - (time.time() - t0)))
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
         out, err = proc.communicate()
         err += f"\n[chip_smoke] killed after {DRIVER_TIMEOUT} s"
     return proc.returncode, out, err, time.time() - t0
+
+
+def run_driver(module, argv):
+    """One driver run to its end: (exit code, stdout, stderr, seconds)."""
+    return wait_driver(start_driver(module, argv))
 
 
 def driver_guard(tag, line, want):
@@ -2843,6 +2810,139 @@ def driver_phase(check, want, own):
             f"{line.get('spread')}, {line.get('samples')} samples, host "
             f"clock); this script's {own[tag]}")
     return lines
+
+
+# Phase 10: the profiling tools (examples/prof*.py), each in a process of
+# its own as phase 9 runs the drivers, all six at once (their times there
+# share the card and the host: contended, not comparable with a tool run
+# alone, so only checked, never reported), on the bench scene at full
+# width, cut to a few steps.  Each: (module, arguments); prof_trace and
+# prof_track get a temporary directory for their traces first.
+PROF_TOOLS = (
+    ("prof", ("--samples", "1", "--inner", "2")),
+    ("prof_bin", ("--samples", "1", "--inner", "2")),
+    ("prof_jvp", ("--samples", "1", "--inner", "2")),
+    ("prof_trace", ("--samples", "1", "--inner", "2")),
+    ("prof_track", ("--samples", "1", "--inner", "1")),
+    ("prof_ab", ("tile_h=16", "tile_w=16", "--samples", "1", "--inner",
+                 "2")),
+)
+
+
+def _finite_pos(x):
+    import math
+    return isinstance(x, (int, float)) and math.isfinite(x) and x > 0
+
+
+def prof_tool_ok(tool, lines, stages, want, rows_want):
+    """The checks of one tool's lines beyond its exit code: its stage
+    count (``stages``, by tool), the card's name and power limit on each line, finite positive
+    host and device times and an idle share in [0, 1); prof_trace: the
+    port's kernels in its table with phase 3's launches a step (``want``,
+    ``rows_want`` by row width); prof_jvp: one render_jvp a dual render;
+    prof_ab: the override's tiles."""
+    ok = len(lines) == stages[tool] and all(
+        x.get("tool") == tool and "error" not in x and bool(x.get("card"))
+        and str(x.get("power_limit")).endswith(" W")
+        and _finite_pos(x.get("host_ms")) and _finite_pos(x.get("device_ms"))
+        and 0 <= x.get("idle_share", -1) < 1 for x in lines)
+    if not ok:
+        return False
+    if tool == "prof_trace":
+        k = lines[0]["kernels"]
+        got = {name: sum(v["launches"] for n, v in k.items()
+                         if n.startswith(name + "_kernel"))
+               for name in ("render_fwd", "tile_scatter_sum", "render_bwd")}
+        got.update({f"segment_sum_rows<{f}>": k.get(
+            f"segment_sum_rows_kernel<{f}>", {}).get("launches")
+            for f in rows_want})
+        exp = {name: want[name] for name in ("render_fwd",
+                                             "tile_scatter_sum",
+                                             "render_bwd")}
+        exp.update({f"segment_sum_rows<{f}>": n
+                    for f, n in rows_want.items()})
+        log(f"[prof] prof_trace's kernels a step {got}, phase 3's {exp}")
+        return got == exp and lines[0]["launches"] == want
+    if tool == "prof_jvp":
+        return [x["launches"]["render_jvp"] for x in lines] == [0, 1, 1] \
+            and lines[0]["launches"]["render_fwd"] == 1
+    if tool == "prof_ab":
+        return [x["tile"] for x in lines] == ["32x32", "16x16"]
+    if tool == "prof_track":
+        return bool(lines[0]["ops"]) and lines[0]["host_syncs"] is not None
+    return True
+
+
+def prof_phase(check, want, rows_want, dev):
+    """Phase 10: every tool of PROF_TOOLS in its own process, all at once,
+    its lines checked (``prof_tool_ok``); prof_bin's last stage against
+    ``bin_gaussians`` + the gather, and prof_ab's refusal of a TPU-only
+    field, here.  Returns each tool's verdict and seconds."""
+    import shutil
+    import tempfile
+
+    import torch
+    from diff_gaussian_rasterization_tpu_torch.examples import (
+        bench as ex_bench, prof, prof_ab, prof_bin, prof_jvp)
+    from diff_gaussian_rasterization_tpu_torch.ops.rasterize import prepare
+    stages = {"prof": len(prof.STAGES), "prof_bin": len(prof_bin.STAGES),
+              "prof_jvp": len(prof_jvp.STAGES),
+              "prof_ab": len(prof_ab.CONFIGS), "prof_trace": 1,
+              "prof_track": 1}
+    traces = tempfile.mkdtemp(prefix="chip_smoke_traces_")
+    out = {}
+    started = [(tool, argv, start_driver(
+        tool, ((traces,) if tool in ("prof_trace", "prof_track") else ())
+        + argv)) for tool, argv in PROF_TOOLS]
+    for tool, argv, proc in started:
+        rc, text, err, secs = wait_driver(proc)
+        try:
+            lines = [json.loads(x) for x in text.splitlines() if x.strip()]
+        except ValueError:
+            lines = []
+        log(f"[prof] {tool}: python -m ...examples.{tool} {' '.join(argv)} "
+            f"exited {rc} after {secs:.1f} s")
+        check(rc == 0 and bool(lines),
+              f"prof tool {tool}: exit code 0, JSON lines on stdout")
+        out[tool] = dict(ok=False, seconds=secs)
+        if rc != 0 or not lines:
+            log(f"[prof] {tool}: stdout {text[-2000:]!r}; stderr tail "
+                f"{err[-4000:]}")
+            continue
+        for x in lines:
+            log(f"[prof] {tool} {x.get('stage', x.get('config', ''))}: "
+                f"launches a step "
+                f"{ {k: v for k, v in x.get('launches', {}).items() if v} }")
+        try:
+            ok = prof_tool_ok(tool, lines, stages, want, rows_want)
+        except (KeyError, TypeError) as e:
+            ok = False
+            log(f"[prof] {tool}: a field is missing: {e!r}")
+        check(ok, f"prof tool {tool}: its stages with finite positive host "
+                  f"and device times, the card's name and power limit, and "
+                  f"its path's kernels")
+        out[tool]["ok"] = ok
+    shutil.rmtree(traces, ignore_errors=True)
+    # prof_bin's prefix pipeline against the binning it stands for
+    args = ex_bench.parse_args([])
+    means, kw, cam, cfg = ex_bench.scene(args, dev)
+    with torch.no_grad():
+        o = prof_bin.pipelines(kw, cam, cfg)["s6 +gather"](means)
+        _, binn, feat, _ = prepare(means, cam, cfg, cfg.max_instances,
+                                   kw["gt_depth"], **prof.prep_kwargs(kw))
+    check(all(torch.equal(a, b) for a, b in (
+        (o["table"], feat[binn.gauss_id]), (o["tile_start"], binn.tile_start),
+        (o["tile_stop"], binn.tile_stop), (o["inv"], binn.inv))),
+        "prof_bin's last stage (table, ranges, inverse) bit-equal to "
+        "bin_gaussians + the gather at the bench scene")
+    try:
+        prof_ab.main(["scan_sum_mm=true", "tile_h=16"])
+        refused = False
+    except ValueError as e:
+        refused = "scan_sum_mm is a TPU-only field" in str(e)
+    check(refused, "prof_ab refuses a TPU-only field (scan_sum_mm), naming "
+                   "it")
+    return out
 
 
 def main():
@@ -3272,6 +3372,13 @@ def main():
                          f"events over 3 steps)"})
     log(f"[phase] 9 took {time.time() - t9:.1f} s")
 
+    # ---- 10. the profiling tools ---------------------------------------
+    log(f"[phase] 10 starts at +{time.time() - t_main:.1f} s")
+    t10 = time.time()
+    profs = prof_phase(check, per_step(counts_fb, 2), per_step(rows_fb, 2),
+                       dev)
+    log(f"[phase] 10 took {time.time() - t10:.1f} s")
+
     # the largest errors over both scales' comparisons and the SLAM run's
     err_fwd, err_bwd, err_rows, err_u, err_ts = (
         max(bench[k], mapped[k], slam_errs[k])
@@ -3345,6 +3452,7 @@ def main():
         tag: {k: d.get(k) for k in ("value", "mean_ms", "median_ms",
                                     "min_ms", "max_ms", "spread", "seconds")}
         for tag, d in drivers.items()}}))
+    log(json.dumps({"prof": profs}))
     if failures:
         log(f"FAILED: {failures}")
         return 1

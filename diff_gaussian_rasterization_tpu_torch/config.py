@@ -127,3 +127,9 @@ class RasterConfig:
 
 
 DEFAULT_CONFIG = RasterConfig()
+
+# The fields above that steer only the JAX package's TPU kernels or pick
+# its backend (the module docstring): setting one changes nothing here.
+TPU_ONLY_FIELDS = ("scan_sum_mm", "scan_prod_mm", "bwd_scan_sum_mm",
+                   "bwd_scan_prod_mm", "bwd_chunk", "kernel_tile_batch",
+                   "bin_row_gather", "backend")

@@ -203,14 +203,15 @@ def emit(line: dict):
     print(json.dumps(line), flush=True)
 
 
-def scene(args, device):
-    """``(means3D, kwargs, camera, cfg)`` of the run: the bench scene and
-    ``cfg.max_instances`` from its true instance count."""
+def scene(args, device, kind="uniform"):
+    """``(means3D, kwargs, camera, cfg)`` of the run: the bench scene (or
+    ``scenes.bench_scene``'s other ``kind``) and ``cfg.max_instances`` from
+    its true instance count."""
     from ..config import RasterConfig
     from ..ops.rasterize import count_instances
     from ..scenes import bench_camera, bench_scene
     means, kw = bench_scene(p=args.gaussians, height=args.height,
-                            width=args.width, device=device)
+                            width=args.width, device=device, kind=kind)
     cam = bench_camera(height=args.height, width=args.width, device=device)
     cfg = RasterConfig(tile_h=32, tile_w=32)
     n_inst = int(count_instances(means, cam, cfg, **kw))

@@ -59,6 +59,16 @@ class Binned(NamedTuple):
 INSTANCE_ALIGN = 128
 
 
+class Expanded(NamedTuple):
+    """Binning's expansion: every instance slot of the budget, unsorted."""
+    g: torch.Tensor       # (I,) int64 source Gaussian of each slot
+    tile: torch.Tensor    # (I,) int64 tile id; num_tiles if not live
+    depth: torch.Tensor   # (I,) the Gaussian's depth (detached)
+    starts: torch.Tensor  # (P,) int64 exclusive prefix sum of tiles_touched
+    ends: torch.Tensor    # (P,) int64 inclusive prefix sum
+    total: torch.Tensor   # () int64 true instance count
+
+
 def bin_gaussians(prep: Preprocessed, tiles_x: int, tiles_y: int,
                   max_instances: int, tile_w: int = 0, tile_h: int = 0,
                   alpha_min: float = 15.0 / 255.0,
@@ -75,7 +85,41 @@ def bin_gaussians(prep: Preprocessed, tiles_x: int, tiles_y: int,
     global pixel rows, adding the integer offset before the float
     conversion, so the test is the full grid's bit for bit.
     See the module docstring for what overflow drops.
+
+    Its stages, which ``examples/prof_bin.py`` times one by one:
+    :func:`expand`, :func:`sort_order`, :func:`tile_ranges` and
+    :func:`inverse_permutation`.
     """
+    num_tiles = tiles_x * tiles_y
+    cap = max_instances
+    ex = expand(prep, tiles_x, tiles_y, cap, tile_w=tile_w, tile_h=tile_h,
+                alpha_min=alpha_min, margin_px=margin_px,
+                row_offset=row_offset)
+    order = sort_order(ex.tile, ex.depth)
+    tile_s = ex.tile[order].to(torch.int32)
+    tile_start, tile_stop = tile_ranges(tile_s, num_tiles)
+    return Binned(
+        gauss_id=ex.g[order],
+        tile_id=tile_s,
+        valid=tile_s < num_tiles,
+        tile_start=tile_start,
+        tile_stop=tile_stop,
+        num_rendered=ex.total,
+        overflow=ex.total > cap,
+        inv=inverse_permutation(order),
+        gauss_start=torch.clamp_max(ex.starts, cap).to(torch.int32),
+        gauss_stop=torch.clamp_max(ex.ends, cap).to(torch.int32),
+    )
+
+
+def expand(prep: Preprocessed, tiles_x: int, tiles_y: int,
+           max_instances: int, tile_w: int = 0, tile_h: int = 0,
+           alpha_min: float = 15.0 / 255.0, margin_px: float = 0.0,
+           row_offset: int = 0) -> Expanded:
+    """Binning's expansion: the prefix sum of the tiles each Gaussian
+    touches, each instance slot's Gaussian (``searchsorted``) and tile in
+    its rect, and the exact ellipse-tile cull (arguments as
+    :func:`bin_gaussians`'s)."""
     dev = prep.tiles_touched.device
     p = prep.tiles_touched.shape[0]
     num_tiles = tiles_x * tiles_y
@@ -138,36 +182,34 @@ def bin_gaussians(prep: Preprocessed, tiles_x: int, tiles_y: int,
         live = valid
     tile = torch.where(live, ty * tiles_x + tx,
                        torch.full_like(tx, num_tiles))
+    return Expanded(g, tile, depth, starts, ends, total)
 
-    # Stable lexicographic sort on (tile, depth): sort by the minor key
-    # first, then stably by the major key; ties keep instance order.
-    # Invalid instances carry the tile sentinel and sort last.
+
+def sort_order(tile, depth):
+    """The permutation that sorts the instances by (tile, depth), stable:
+    by the minor key first, then stably by the major key, so ties keep
+    instance order.  Invalid instances carry the tile sentinel and sort
+    last."""
     o1 = torch.sort(depth, stable=True).indices
     o2 = torch.sort(tile[o1], stable=True).indices
-    order = o1[o2]
-    tile_s = tile[order].to(torch.int32)
-    g_s = g[order]
+    return o1[o2]
 
-    t = torch.arange(num_tiles, dtype=torch.int32, device=dev)
-    tile_start = torch.searchsorted(tile_s, t, out_int32=True)
-    tile_stop = torch.searchsorted(tile_s, t, right=True, out_int32=True)
 
-    # the inverse permutation (unique indices: a deterministic scatter)
-    inv = torch.empty(cap, dtype=torch.int32, device=dev)
-    inv[order] = torch.arange(cap, dtype=torch.int32, device=dev)
+def tile_ranges(tile_s, num_tiles: int):
+    """Each tile's segment ``[tile_start, tile_stop)`` (int32) in the sorted
+    tile ids."""
+    t = torch.arange(num_tiles, dtype=torch.int32, device=tile_s.device)
+    return (torch.searchsorted(tile_s, t, out_int32=True),
+            torch.searchsorted(tile_s, t, right=True, out_int32=True))
 
-    return Binned(
-        gauss_id=g_s,
-        tile_id=tile_s,
-        valid=tile_s < num_tiles,
-        tile_start=tile_start,
-        tile_stop=tile_stop,
-        num_rendered=total,
-        overflow=total > cap,
-        inv=inv,
-        gauss_start=torch.clamp_max(starts, cap).to(torch.int32),
-        gauss_stop=torch.clamp_max(ends, cap).to(torch.int32),
-    )
+
+def inverse_permutation(order):
+    """``inv[order[k]] = k`` (int32): pre-sort instance -> sorted position
+    (unique indices: a deterministic scatter)."""
+    inv = torch.empty(order.shape[0], dtype=torch.int32, device=order.device)
+    inv[order] = torch.arange(order.shape[0], dtype=torch.int32,
+                              device=order.device)
+    return inv
 
 
 def bin_gaussians_band(prep: Preprocessed, tiles_x: int, band_y0: int,

@@ -189,10 +189,10 @@ def prepare(means3D, camera: Camera, cfg: RasterConfig, max_instances: int,
     if binn is None:
         binn = _bin(prep, camera, cfg, max_instances)
     gt_tiles = img_to_tiles(gt_depth, cfg.tile_h, cfg.tile_w).contiguous()
-    return prep, binn, _feature_table(prep), gt_tiles
+    return prep, binn, feature_table(prep), gt_tiles
 
 
-def _feature_table(prep):
+def feature_table(prep):
     """The per-Gaussian feature table [P, 11] the render core gathers."""
     return torch.cat(
         [prep.xy, prep.conic, prep.opacity[:, None], prep.color,
@@ -345,7 +345,7 @@ def _shard_binned(means3D, camera: Camera, cfg: RasterConfig, mesh,
     sb = shard_bin.make_shard_binned_core(
         mesh, tile_axis, prep, gt_tiles, cfg=cfg, tiles_x=tiles_x,
         tiles_y=tiles_y, cap_per_shard=cap_per_shard, height=h,
-        width=w)(_feature_table(prep))
+        width=w)(feature_table(prep))
     return _outputs(sb.core, prep, sb.num_rendered, sb.overflow, bg, cfg, h,
                     w)
 

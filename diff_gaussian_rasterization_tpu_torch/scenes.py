@@ -4,7 +4,9 @@
 in the same order and with the same distributions as the JAX package's
 ``bench.py`` (``make_scene``), so both packages render the same Gaussians:
 P Gaussians in a 4 x 4 x 5.2 box in front of an identity camera at
-1200x680, tan(fov/2) = 0.82 x 0.47.  ``random_model`` makes a
+1200x680, tan(fov/2) = 0.82 x 0.47; ``kind="room"`` draws the JAX
+package's root ``prof.py`` room instead (``make_scene(kind="room")``), a
+scene that occludes most of what it holds.  ``random_model`` makes a
 ``GaussianModel`` of the same Gaussians with random SH bands.
 ``mapping_model`` is the model of the JAX package's mapping benchmark
 (``bench_tracking.make_model``, 500,000 Gaussians in ``bench_mapping.py``),
@@ -43,19 +45,46 @@ def bench_camera(viewmatrix=None, height=BENCH_H, width=BENCH_W,
 
 
 def bench_scene(seed=0, p=BENCH_P, height=BENCH_H, width=BENCH_W,
-                device="cuda"):
+                device="cuda", kind="uniform"):
     """``(means3D, kwargs)`` of the benchmark scene; ``kwargs`` holds
-    scales, rotations, opacities, colors_precomp, bg and gt_depth."""
+    scales, rotations, opacities, colors_precomp, bg and gt_depth.
+
+    ``kind="uniform"`` is the root ``bench.py``'s cloud (``make_scene``,
+    ``bench.py:59-74``).  ``kind="room"`` is the root ``prof.py``'s
+    occlusion-heavy room (``make_scene(kind="room")``, ``prof.py:44-56``):
+    three quarters of the Gaussians on the walls of a 6 m box around the
+    camera, the rest clutter inside it, drawn in that function's order.
+    (``prof.py``'s own uniform cloud draws the same distributions as
+    ``bench.py``'s but its scales and opacities before the rotations, so
+    only its means equal this one's.)"""
+    if kind not in ("uniform", "room"):
+        raise ValueError(f"kind must be 'uniform' or 'room', got {kind!r}")
     rng = np.random.RandomState(seed)
-    means = rng.uniform(-2, 2, (p, 3))
-    means[:, 2] = rng.uniform(0.8, 6.0, p)
-    quats = rng.normal(size=(p, 4))
-    quats /= np.linalg.norm(quats, axis=1, keepdims=True)
     t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    if kind == "room":
+        n_wall = int(p * 0.75)
+        walls = rng.uniform(-3, 3, (n_wall, 3))
+        face = rng.randint(0, 6, n_wall)
+        axis, sign = face // 2, (face % 2) * 2 - 1
+        walls[np.arange(n_wall), axis] = sign * 3.0
+        clutter = rng.uniform(-2.4, 2.4, (p - n_wall, 3))
+        # the camera at the origin looking along +z: walls 3-6 m away
+        means = np.concatenate([walls, clutter]) + np.asarray([0.0, 0.0, 3.2])
+        scales = np.exp(rng.uniform(np.log(0.03), np.log(0.12), (p, 3)))
+        opac = rng.uniform(0.5, 0.99, (p, 1))
+        quats = rng.normal(size=(p, 4))
+        quats /= np.linalg.norm(quats, axis=1, keepdims=True)
+    else:
+        means = rng.uniform(-2, 2, (p, 3))
+        means[:, 2] = rng.uniform(0.8, 6.0, p)
+        quats = rng.normal(size=(p, 4))
+        quats /= np.linalg.norm(quats, axis=1, keepdims=True)
+        scales = np.exp(rng.uniform(np.log(0.01), np.log(0.05), (p, 3)))
+        opac = rng.uniform(0.2, 0.95, (p, 1))
     kw = dict(
-        scales=t(np.exp(rng.uniform(np.log(0.01), np.log(0.05), (p, 3)))),
+        scales=t(scales),
         rotations=t(quats),
-        opacities=t(rng.uniform(0.2, 0.95, (p, 1))),
+        opacities=t(opac),
         colors_precomp=t(rng.uniform(0, 1, (p, 3))),
         bg=torch.zeros(3, dtype=torch.float32, device=device),
         gt_depth=t(rng.uniform(0.8, 6, (height, width))),

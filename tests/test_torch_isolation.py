@@ -2,7 +2,7 @@
 
 A subprocess with ``jax`` and ``diff_gaussian_rasterization_tpu`` blocked
 in ``sys.modules`` imports every module of the port (its reference-style
-``api`` and its seven ``examples`` too)
+``api`` and its thirteen ``examples`` too)
 and its root scripts (``chip_smoke.py``, ``ab_render_fwd.py``), and builds
 nothing while it does; a scan of their sources finds no import of either.
 """
@@ -38,7 +38,9 @@ assert not _build._libs and native._posegraph_fn.cache_info().currsize == 0
 assert native._rgbdio_fn.cache_info().currsize == 0
 for mod in ("api", "examples.bench_ate", "examples.render_ply",
             "examples.fit_scene", "examples.run_slam", "examples.bench",
-            "examples.bench_tracking", "examples.bench_mapping"):
+            "examples.bench_tracking", "examples.bench_mapping",
+            "examples.prof", "examples.prof_bin", "examples.prof_jvp",
+            "examples.prof_trace", "examples.prof_track", "examples.prof_ab"):
     assert "diff_gaussian_rasterization_tpu_torch." + mod in names, mod
 print(len(names))
 """
