@@ -1,0 +1,7 @@
+"""Frames tracked over the whole window's seconds."""
+
+from splatbench import readers
+
+
+def read(ctx):
+    return readers.rate(ctx)

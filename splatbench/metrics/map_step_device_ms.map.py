@@ -1,0 +1,8 @@
+"""Device busy time a map step: the union of CUDA activity under the
+profiler."""
+
+from splatbench import readers
+
+
+def read(ctx):
+    return readers.busy_ms(ctx)
