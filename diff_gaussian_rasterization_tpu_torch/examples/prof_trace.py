@@ -19,10 +19,13 @@ never read in their place) it prints the per-op table: device ms and
 launches a step by kernel name, the longest first, the top TOP of them,
 with the total device time a step,
 the idle share of the profiled window, and the port's own kernels by name
-and template arguments (``kernels``).  Then one more step in CUDA's sync
-debug mode counts the host's waits on the card (``host_syncs``) and their
-ten busiest call sites.  On the CPU the device numbers are null (not
-measured).
+and template arguments (``kernels``).  The program's own spans and
+counters over the profiled steps (``utils/profiling.py``: on while the
+profiler records) follow, a step each (``spans``: calls, host and stream
+ms, inclusive and self, by span; the counters).  Then one more step in
+CUDA's sync debug mode counts the host's waits on the card
+(``host_syncs``) and their ten busiest call sites.  On the CPU the device
+numbers and the stream times are null (not measured).
 
 Prints the table on stderr and one JSON line on stdout.
 """
@@ -53,7 +56,7 @@ def profiled(tool, step, args, device, unit, top):
     ``OUTDIR/<tool>.json``), the per-op table's ``top`` rows (printed on
     stderr), and the host's waits in one more step; the line's fields."""
     from ..ops.kernels import render
-    from ..utils.profiling import host_syncs, op_table, port_kernels
+    from ..utils import profiling
 
     def run():
         for _ in range(args.inner):
@@ -63,10 +66,13 @@ def profiled(tool, step, args, device, unit, top):
     trace = Path(args.outdir) / f"{tool}.json"
     trace.parent.mkdir(parents=True, exist_ok=True)
     render.reset_launches()
+    profiling.reset()
     split, events = device_split(run, args.inner, device, trace_path=trace)
+    table = span_table(profiling.snapshot(), args.inner)
+    profiling.reset()
     launches = launch_counts(args.inner)
-    rows, total = op_table(events, args.inner)
-    syncs, sites = host_syncs(step) if device.type == "cuda" \
+    rows, total = profiling.op_table(events, args.inner)
+    syncs, sites = profiling.host_syncs(step) if device.type == "cuda" \
         else (None, None)
     if device.type == "cuda":
         note(tool, f"device time {total:.4f} ms a {unit} (idle share "
@@ -76,10 +82,39 @@ def profiled(tool, step, args, device, unit, top):
             note(tool, f"{r['ms']:9.4f} ms a {unit}  x{r['launches']:<7.1f} "
                        f"{r['name'][:100]}")
         note(tool, f"host waits a {unit}: {syncs}; by call site {sites}")
+    note_spans(tool, table, unit)
     return dict(host_ms=sum(ms) / len(ms), samples_ms=ms, **split,
-                launches=launches, kernels=port_kernels(rows),
-                ops=rows[:top], host_syncs=syncs, sync_sites=sites,
-                trace=str(trace))
+                launches=launches, kernels=profiling.port_kernels(rows),
+                ops=rows[:top], spans=table, host_syncs=syncs,
+                sync_sites=sites, trace=str(trace))
+
+
+def span_table(snap, n):
+    """The program's records (``profiling.snapshot()``) a step of ``n``:
+    ``{"spans": {name: {calls, host_ms, host_self_ms, stream_ms,
+    stream_self_ms}}, "counters": {name: value}}``, the longest span
+    first; stream times null where not measured."""
+    ms = lambda s: None if s is None else 1e3 * s / n
+    rows = sorted(snap["spans"].items(), key=lambda kv: -kv[1]["host_s"])
+    return dict(
+        spans={k: dict(calls=s["calls"] / n, host_ms=ms(s["host_s"]),
+                       host_self_ms=ms(s["host_self_s"]),
+                       stream_ms=ms(s["stream_s"]),
+                       stream_self_ms=ms(s["stream_self_s"]))
+               for k, s in rows},
+        counters={k: v / n for k, v in sorted(snap["counters"].items())})
+
+
+def note_spans(tool, table, unit):
+    """The span table and the counters on stderr."""
+    f = lambda x: "       —" if x is None else f"{x:8.3f}"
+    note(tool, f"spans a {unit} (ms: host, host self, stream, stream "
+               f"self; calls):")
+    for k, s in table["spans"].items():
+        note(tool, f"{f(s['host_ms'])} {f(s['host_self_ms'])} "
+                   f"{f(s['stream_ms'])} {f(s['stream_self_ms'])}  "
+                   f"x{s['calls']:<6.1f} {k}")
+    note(tool, f"counters a {unit}: {table['counters']}")
 
 
 def main(argv=None):

@@ -12,8 +12,9 @@ with 100,000 Gaussians rendered at the identity pose, 32x32 tiles, a
 budget of 1.1x its instance count), from the start pose that
 ``prof_track.py:32-33`` tracks from (``scenes.TRACKING_XI``).  A step is
 one tracked frame; after one warm-up frame it is timed, profiled (the
-trace in ``OUTDIR/prof_track.json``) and its host waits counted as
-``prof_trace`` does (the trace's default directory is ``prof_trace``'s),
+trace in ``OUTDIR/prof_track.json``, the program's spans and counters in
+``spans``) and its host waits counted as ``prof_trace`` does (the
+trace's default directory is ``prof_trace``'s),
 and the table's top 30 rows, as the JAX tool prints them, on stderr with
 one JSON line on stdout.
 """

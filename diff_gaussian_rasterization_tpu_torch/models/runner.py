@@ -31,6 +31,7 @@ import torch
 from ..camera import Camera
 from ..config import RasterConfig
 from ..ops.sh import rgb_to_sh0
+from ..utils import profiling as prof
 from . import lie
 from .gaussians import DensifyState, GaussianModel, init_model
 from .slam import (Frame, MapOptimizer, MappingConfig, TrackingConfig,
@@ -261,6 +262,7 @@ def _coverage(out, frame: Frame) -> float:
     return float(((out.opacity_map[0] > 0.5) & dv).sum()) / n
 
 
+@prof.spanned("slam.step")
 def slam_step(state: SLAMState, frame: Frame, cam_t: Camera,
               scfg: SLAMConfig, frame_idx: int):
     """Process one frame: track; maybe keyframe, refine and map.  Returns
@@ -275,103 +277,108 @@ def slam_step(state: SLAMState, frame: Frame, cam_t: Camera,
             _tensor(x1 @ np.linalg.inv(x2) @ x1, dev))
     else:
         view0 = state.est_views[-1]
-    view, loss, _ = track_frame(state.model, view0, frame, rcfg,
-                                scfg.tracking, cam_t, **_track_kw(scfg))
+    with prof.span("slam.track"):
+        view, loss, _ = track_frame(state.model, view0, frame, rcfg,
+                                    scfg.tracking, cam_t, **_track_kw(scfg))
 
-    def coverage_render(v):
-        with torch.no_grad():
-            out = render_model(state.model, cam_t.replace(viewmatrix=v), rcfg)
-        return out, _coverage(out, frame)
-
-    # relocalization: flag the frame lost when its cost spikes above the
-    # recent baseline or its silhouette coverage collapses; retry from the
-    # nearest keyframe poses, keep the best coverage-normalized cost
-    out = cov = None
-    if scfg.reloc_spike > 0 and len(state.track_costs) >= 4:
-        base = float(np.median(state.track_costs[-8:]))
-        out, cov = coverage_render(view)
-        if (float(loss) > scfg.reloc_spike * max(base, 1e-12)
-                or cov < scfg.reloc_min_coverage):
-            v0 = _np64(view0)
-            c0 = -v0[3, :3] @ np.linalg.inv(v0[:3, :3]).T
-            ax0 = v0[:3, 2]
-
-            def dist(v):
-                v = _np64(v)
-                c = -v[3, :3] @ np.linalg.inv(v[:3, :3]).T
-                return (np.linalg.norm(c - c0)
-                        + 2.0 * (1.0 - float(v[:3, 2] @ ax0)))
-
-            nscore = lambda l, cv: float(l) / max(cv, 0.05)
-            best = nscore(loss, cov)
-            # candidates start a keyframe gap away: always coarse to fine
-            tcfg_r = dataclasses.replace(
-                scfg.tracking,
-                iters=(scfg.reloc_track_iters if scfg.reloc_track_iters > 0
-                       else scfg.tracking.iters),
-                pyramid=max(scfg.tracking.pyramid, 2))
-            order = np.argsort([dist(v) for v in state.kf_views])
-            for i in order[:max(scfg.reloc_candidates, 0)]:
-                v2, l2, _ = track_frame(state.model, state.kf_views[i],
-                                        frame, rcfg, tcfg_r, cam_t,
-                                        **_track_kw(scfg))
-                out2, cov2 = coverage_render(v2)
-                s2 = nscore(l2, cov2)
-                if s2 < best:
-                    best, view, loss, out, cov = s2, v2, l2, out2, cov2
-    state.track_costs.append(float(loss))
-    state.est_views.append(view)
-
-    kf_due = frame_idx % scfg.keyframe_every == 0
-    cov_trigger = False
-    cooled = (not state.kf_idx
-              or frame_idx - state.kf_idx[-1] >= scfg.kf_coverage_cooldown)
-    if scfg.kf_min_coverage > 0 and not kf_due and cooled:
-        if cov is None:
-            out, cov = coverage_render(view)
-        cov_trigger = cov < scfg.kf_min_coverage
-
-    if kf_due or cov_trigger:
-        state.kf_views.append(view)
-        state.kf_frames.append(frame)
-        state.kf_idx.append(frame_idx)
-        if out is None:
+        def coverage_render(v):
             with torch.no_grad():
                 out = render_model(state.model,
-                                   cam_t.replace(viewmatrix=view), rcfg)
-        # regrow the instance budget when a keyframe's true instance count
-        # reaches 80% of it, before any render overflows
-        if (rcfg.max_instances is not None
-                and int(out.num_rendered) > 0.8 * rcfg.max_instances):
-            state.raster = rcfg = rcfg.replace(
-                max_instances=_budget(out.num_rendered))
-        # seed unobserved regions: pixels with low silhouette
-        holes = Frame(rgb=frame.rgb, depth=torch.where(
-            out.opacity_map[0] < 0.5, frame.depth,
-            torch.zeros_like(frame.depth)))
-        means, colors, scales = backproject(holes, view, cam_t,
-                                            scfg.seed_every_px)
-        if means.shape[0] > 0:
-            add_gaussians(state.model, means, colors, scales)
+                                   cam_t.replace(viewmatrix=v), rcfg)
+            return out, _coverage(out, frame)
+
+        # relocalization: flag the frame lost when its cost spikes above the
+        # recent baseline or its silhouette coverage collapses; retry from the
+        # nearest keyframe poses, keep the best coverage-normalized cost
+        out = cov = None
+        if scfg.reloc_spike > 0 and len(state.track_costs) >= 4:
+            base = float(np.median(state.track_costs[-8:]))
+            out, cov = coverage_render(view)
+            if (float(loss) > scfg.reloc_spike * max(base, 1e-12)
+                    or cov < scfg.reloc_min_coverage):
+                v0 = _np64(view0)
+                c0 = -v0[3, :3] @ np.linalg.inv(v0[:3, :3]).T
+                ax0 = v0[:3, 2]
+
+                def dist(v):
+                    v = _np64(v)
+                    c = -v[3, :3] @ np.linalg.inv(v[:3, :3]).T
+                    return (np.linalg.norm(c - c0)
+                            + 2.0 * (1.0 - float(v[:3, 2] @ ax0)))
+
+                nscore = lambda l, cv: float(l) / max(cv, 0.05)
+                best = nscore(loss, cov)
+                # candidates start a keyframe gap away: always coarse to fine
+                tcfg_r = dataclasses.replace(
+                    scfg.tracking,
+                    iters=(scfg.reloc_track_iters if scfg.reloc_track_iters > 0
+                           else scfg.tracking.iters),
+                    pyramid=max(scfg.tracking.pyramid, 2))
+                order = np.argsort([dist(v) for v in state.kf_views])
+                for i in order[:max(scfg.reloc_candidates, 0)]:
+                    v2, l2, _ = track_frame(state.model, state.kf_views[i],
+                                            frame, rcfg, tcfg_r, cam_t,
+                                            **_track_kw(scfg))
+                    out2, cov2 = coverage_render(v2)
+                    s2 = nscore(l2, cov2)
+                    if s2 < best:
+                        best, view, loss, out, cov = s2, v2, l2, out2, cov2
+        state.track_costs.append(float(loss))
+        state.est_views.append(view)
+
+    with prof.span("slam.keyframe"):
+        kf_due = frame_idx % scfg.keyframe_every == 0
+        cov_trigger = False
+        cooled = (not state.kf_idx
+                  or frame_idx - state.kf_idx[-1] >= scfg.kf_coverage_cooldown)
+        if scfg.kf_min_coverage > 0 and not kf_due and cooled:
+            if cov is None:
+                out, cov = coverage_render(view)
+            cov_trigger = cov < scfg.kf_min_coverage
+
+        if kf_due or cov_trigger:
+            state.kf_views.append(view)
+            state.kf_frames.append(frame)
+            state.kf_idx.append(frame_idx)
+            if out is None:
+                with torch.no_grad():
+                    out = render_model(state.model,
+                                       cam_t.replace(viewmatrix=view), rcfg)
+            # regrow the instance budget when a keyframe's true instance count
+            # reaches 80% of it, before any render overflows
+            if (rcfg.max_instances is not None
+                    and int(out.num_rendered) > 0.8 * rcfg.max_instances):
+                state.raster = rcfg = rcfg.replace(
+                    max_instances=_budget(out.num_rendered))
+            # seed unobserved regions: pixels with low silhouette
+            holes = Frame(rgb=frame.rgb, depth=torch.where(
+                out.opacity_map[0] < 0.5, frame.depth,
+                torch.zeros_like(frame.depth)))
+            means, colors, scales = backproject(holes, view, cam_t,
+                                                scfg.seed_every_px)
+            if means.shape[0] > 0:
+                add_gaussians(state.model, means, colors, scales)
 
     if (scfg.refine_every and len(state.kf_views) >= 3
             and frame_idx % (scfg.refine_every * scfg.keyframe_every) == 0):
-        state = refine_keyframes(state, scfg, cam_t)
+        with prof.span("slam.refine"):
+            state = refine_keyframes(state, scfg, cam_t)
 
     if ((frame_idx % scfg.map_every == 0 or cov_trigger)
             and len(state.kf_views) >= 1):
-        # the latest keyframe anchors the window, older ones per
-        # scfg.window_select
-        idx = _select_window(state, scfg, frame_idx)
-        kf = (torch.stack([state.kf_views[i] for i in idx]),
-              torch.stack([state.kf_frames[i].rgb for i in idx]),
-              torch.stack([state.kf_frames[i].depth for i in idx]))
-        mcfg = scfg.mapping
-        if cov_trigger and scfg.coverage_map_iters > 0:
-            mcfg = dataclasses.replace(mcfg, iters=scfg.coverage_map_iters)
-        state.dstate, _ = mapping_round(
-            state.model, state.opt, state.dstate, kf, rcfg, mcfg, cam_t,
-            state.rng, **_dist_kw(scfg))
+        with prof.span("slam.map_round"):
+            # the latest keyframe anchors the window, older ones per
+            # scfg.window_select
+            idx = _select_window(state, scfg, frame_idx)
+            kf = (torch.stack([state.kf_views[i] for i in idx]),
+                  torch.stack([state.kf_frames[i].rgb for i in idx]),
+                  torch.stack([state.kf_frames[i].depth for i in idx]))
+            mcfg = scfg.mapping
+            if cov_trigger and scfg.coverage_map_iters > 0:
+                mcfg = dataclasses.replace(mcfg, iters=scfg.coverage_map_iters)
+            state.dstate, _ = mapping_round(
+                state.model, state.opt, state.dstate, kf, rcfg, mcfg, cam_t,
+                state.rng, **_dist_kw(scfg))
     return state, float(loss)
 
 

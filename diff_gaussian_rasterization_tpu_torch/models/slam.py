@@ -41,6 +41,7 @@ from ..ops.rasterize import bin_for_view, rasterize, rasterize_with_pose_jvp
 from ..parallel import sharded
 from ..parallel.mesh import (all_reduce, axis_group, axis_size, check_mesh,
                              has_axis)
+from ..utils import profiling as prof
 from . import lie
 from .gaussians import (PARAM_FIELDS, DensifyState, GaussianModel,
                         densify_and_prune, prune_by_uncertainty, split_noise)
@@ -256,6 +257,14 @@ class _Tracker:
         return torch.cat([self.sqc * rc, self.sqd * rd])
 
 
+def _count_trial(accept):
+    """A Gauss-Newton trial step and its accept decision (a device bool,
+    copied without a wait)."""
+    if prof.tracing():
+        prof.count("track.gn_trials", 1)
+        prof.count("track.gn_accepts", accept)
+
+
 def _track_gn(tr: _Tracker, binnings=None):
     """Exact Gauss-Newton / Levenberg-Marquardt on the pose twist.
 
@@ -269,37 +278,42 @@ def _track_gn(tr: _Tracker, binnings=None):
     bkw = {}
     if tcfg.freeze_binning:
         m = tcfg.bin_margin_px
-        bkw["binn"] = bin_for_view(
-            tr.means, tr.camera(tr.view0), cfg.replace(bin_margin_px=m),
-            max_instances=frozen_budget(cfg, tr.means.shape[0], m), **tr.kw)
+        with prof.span("track.bin"):
+            bkw["binn"] = bin_for_view(
+                tr.means, tr.camera(tr.view0), cfg.replace(bin_margin_px=m),
+                max_instances=frozen_budget(cfg, tr.means.shape[0], m),
+                **tr.kw)
         if binnings is not None:
             binnings.append(bkw["binn"])
 
     def gn_eval(xi):
-        view = lie.apply_twist(tr.view0, xi)
-        # twist-basis tangents of the view matrix at xi: [4, 4, 6]
-        tw = torch.func.jacfwd(lambda x: lie.apply_twist(tr.view0, x))(xi)
-        j = rasterize_with_pose_jvp(
-            tr.means, tr.camera(view), cfg, tw.movedim(-1, 0),
-            gt_depth=tr.frame.depth, **tr.kw, **tr.mk, **bkw)
-        out = j.out
-        m = tr.mask(out)
-        r = tr.residuals(out, m)
-        sil = out.opacity_map[0]
-        silc = torch.clamp_min(sil, 1e-6)
-        dsil = torch.where(sil > 1e-6, j.opacity_map,
-                           torch.zeros_like(j.opacity_map))    # [6, H, W]
-        jc = (j.color * m[None, None]).reshape(6, -1)
-        jd = ((j.depth * silc[None] - out.depth[0][None] * dsil)
-              / (silc * silc)[None] * m[None]).reshape(6, -1)
-        jac = torch.cat([tr.sqc * jc, tr.sqd * jd], 1)          # [6, N]
-        cost, w = _huber_cost(r, tcfg.huber)
-        jw = jac * w[None, :]
-        return jw @ jac.T, jw @ r, cost
+        with prof.span("track.gn_eval"):
+            view = lie.apply_twist(tr.view0, xi)
+            # twist-basis tangents of the view matrix at xi: [4, 4, 6]
+            tw = torch.func.jacfwd(lambda x: lie.apply_twist(tr.view0, x))(xi)
+            j = rasterize_with_pose_jvp(
+                tr.means, tr.camera(view), cfg, tw.movedim(-1, 0),
+                gt_depth=tr.frame.depth, **tr.kw, **tr.mk, **bkw)
+            out = j.out
+            m = tr.mask(out)
+            r = tr.residuals(out, m)
+            sil = out.opacity_map[0]
+            silc = torch.clamp_min(sil, 1e-6)
+            dsil = torch.where(sil > 1e-6, j.opacity_map,
+                               torch.zeros_like(j.opacity_map))  # [6, H, W]
+            jc = (j.color * m[None, None]).reshape(6, -1)
+            jd = ((j.depth * silc[None] - out.depth[0][None] * dsil)
+                  / (silc * silc)[None] * m[None]).reshape(6, -1)
+            jac = torch.cat([tr.sqc * jc, tr.sqd * jd], 1)      # [6, N]
+            cost, w = _huber_cost(r, tcfg.huber)
+            jw = jac * w[None, :]
+            return jw @ jac.T, jw @ r, cost
 
     def cost_at(xi):
-        out = tr.render(xi, map_off=True, track_off=True, **bkw)
-        return _huber_cost(tr.residuals(out, tr.mask(out)), tcfg.huber)[0]
+        with prof.span("track.cost"):
+            out = tr.render(xi, map_off=True, track_off=True, **bkw)
+            return _huber_cost(tr.residuals(out, tr.mask(out)),
+                               tcfg.huber)[0]
 
     lam = torch.full((), tcfg.lam0, dtype=tr.zero.dtype,
                      device=tr.zero.device)
@@ -314,6 +328,7 @@ def _track_gn(tr: _Tracker, binnings=None):
             dx = _lm_solve(h, g, lam)
             xi2 = xi + dx
             accept = (cost_at(xi2) < cost) & torch.isfinite(dx).all()
+            _count_trial(accept)
             xi = torch.where(accept, xi2, xi)
             lam = _lm_damping(accept, lam)
             costs.append(cost)
@@ -333,6 +348,7 @@ def _track_gn(tr: _Tracker, binnings=None):
         best_xi = torch.where(better, xi_try, best_xi)
         best_cost = torch.where(better, cost, best_cost)
         accept = cost < cost_anchor
+        _count_trial(accept)
         lam = _lm_damping(accept, lam)
         dx_new = _lm_solve(h, g, lam)
         ok = torch.isfinite(dx_new).all()
@@ -464,14 +480,16 @@ def track_frame(model: GaussianModel, view0, frame: Frame,
                                              iters=tcfg.coarse_iters))
               for lvl in range(max(tcfg.pyramid, 1) - 1, 0, -1)
               if not (h % 2 ** lvl or w % 2 ** lvl)]
-    with torch.no_grad():
+    with torch.no_grad(), prof.span("track.frame"):
+        prof.count_true("track.active", model.active)
         for s, tcfg_l in levels + [(1, tcfg)]:
-            fl = frame if s == 1 else downsample_frame(frame, s)
-            work = _maybe_gather(model, view, mesh, map_axis, map_budget)
-            tr = _Tracker(work, view, fl.rgb, fl.depth, cfg, tcfg_l, h // s,
-                          w // s, *fov, mk=mk)
-            xi, cost, costs = impl(tr, binnings)
-            view = lie.apply_twist(tr.view0, xi)
+            with prof.span("track.level"):
+                fl = frame if s == 1 else downsample_frame(frame, s)
+                work = _maybe_gather(model, view, mesh, map_axis, map_budget)
+                tr = _Tracker(work, view, fl.rgb, fl.depth, cfg, tcfg_l,
+                              h // s, w // s, *fov, mk=mk)
+                xi, cost, costs = impl(tr, binnings)
+                view = lie.apply_twist(tr.view0, xi)
     return view, cost, costs
 
 
@@ -543,6 +561,7 @@ def make_map_optimizer(model: GaussianModel,
     return MapOptimizer(adam, schedule)
 
 
+@prof.spanned("map.step")
 def map_step(model: GaussianModel, opt: MapOptimizer, dstate: DensifyState,
              views, rgbs, depths, wts, cfg: RasterConfig,
              mcfg: MappingConfig, height: int, width: int, tanfovx: float,
@@ -642,43 +661,52 @@ def map_step(model: GaussianModel, opt: MapOptimizer, dstate: DensifyState,
         means2d = zeros2d.clone().requires_grad_(True)
         total = 0.0
         vis = gau_u = gau_np = None
+        if map_axis is None and prof.tracing():
+            # the active slots against the slots the renders preprocess
+            prof.count_true("map.active", model.active, times=n_frames)
+            prof.count("map.gaussians", n_frames * model.capacity)
         for i in range(n_frames):
-            if map_axis is not None:
-                prm = {**params, "__means2d": means2d,
-                       "active": model.active}
-                g, valid, _, order = sharded.gather_visible(
-                    prm, views[i], mesh, map_axis,
-                    budget_per_shard=_map_budget(model, mesh, map_axis,
-                                                 map_budget),
-                    with_order=True)
-                means, m2d = g["means3D"], g["__means2d"]
-                kw = _gathered(g, valid).raster_kwargs()
-            else:
-                means, m2d, kw = model.means3D, means2d, model.raster_kwargs()
-            out = rasterize(means, cam_of(views[i]), cfg,
-                            gt_depth=depths[i], means2D=m2d, track_off=True,
-                            **kw, **mk)
-            total = total + frame_loss(out, wts[i], rgbs[i], depths[i])
-            # window-summed per-Gaussian stats; padding frames excluded
-            live = wts[i] > 0
-            u_i = out.gau_uncertainty * live.to(out.gau_uncertainty.dtype)
-            n_i = out.gau_related_pixels * live.to(torch.int32)
-            if map_axis is None:
-                v_i = (out.radii > 0) & live
-                vis = v_i if vis is None else vis | v_i
-            elif want_stats:
-                # stats of the gathered set, routed back to the map's rows
-                route = lambda st: sharded.scatter_gathered_stats(
-                    st, order, valid, mesh, map_axis,
-                    p_global=model.capacity)
-                u_i, n_i = route(u_i), route(n_i)
-            else:
-                u_i = n_i = None
-            if u_i is not None:
-                gau_u = u_i if gau_u is None else gau_u + u_i
-                gau_np = n_i if gau_np is None else gau_np + n_i
+            with prof.span("map.render"):
+                if map_axis is not None:
+                    prm = {**params, "__means2d": means2d,
+                           "active": model.active}
+                    g, valid, _, order = sharded.gather_visible(
+                        prm, views[i], mesh, map_axis,
+                        budget_per_shard=_map_budget(model, mesh, map_axis,
+                                                     map_budget),
+                        with_order=True)
+                    means, m2d = g["means3D"], g["__means2d"]
+                    kw = _gathered(g, valid).raster_kwargs()
+                else:
+                    means, m2d = model.means3D, means2d
+                    kw = model.raster_kwargs()
+                out = rasterize(means, cam_of(views[i]), cfg,
+                                gt_depth=depths[i], means2D=m2d,
+                                track_off=True, **kw, **mk)
+                total = total + frame_loss(out, wts[i], rgbs[i], depths[i])
+                # window-summed per-Gaussian stats; padding frames excluded
+                live = wts[i] > 0
+                u_i = out.gau_uncertainty * live.to(
+                    out.gau_uncertainty.dtype)
+                n_i = out.gau_related_pixels * live.to(torch.int32)
+                if map_axis is None:
+                    v_i = (out.radii > 0) & live
+                    vis = v_i if vis is None else vis | v_i
+                elif want_stats:
+                    # stats of the gathered set, routed back to the map's
+                    # rows
+                    route = lambda st: sharded.scatter_gathered_stats(
+                        st, order, valid, mesh, map_axis,
+                        p_global=model.capacity)
+                    u_i, n_i = route(u_i), route(n_i)
+                else:
+                    u_i = n_i = None
+                if u_i is not None:
+                    gau_u = u_i if gau_u is None else gau_u + u_i
+                    gau_np = n_i if gau_np is None else gau_np + n_i
         loss = total / torch.clamp_min(wts.sum(), 1e-9)
-        loss.backward()
+        with prof.span("map.backward"):
+            loss.backward()
         loss = loss.detach()
         g2d = means2d.grad
         if map_axis is not None:
@@ -695,7 +723,8 @@ def map_step(model: GaussianModel, opt: MapOptimizer, dstate: DensifyState,
     if grads is not None:
         for k, v in params.items():
             v.grad = grads[k]
-    opt.step()
+    with prof.span("map.adam"):
+        opt.step()
     # densification statistics: the screen-space (NDC) position gradient
     dstate = dstate.update(g2d, visible=visible)
     return loss, dstate, (gau_u, gau_np)

@@ -29,6 +29,12 @@ along K view-matrix directions (the ``render_jvp`` kernel on the card).
 ``bin_for_view`` computes a binning once so that later renders at nearby
 poses reuse it (``binn=``).
 
+Each stage runs inside a span of ``utils.profiling`` (``render``,
+``render.jvp``, ``render.preprocess``, ``render.binning``,
+``render.tangents``, ``render.core_fwd``/``_bwd``/``_jvp``,
+``render.assemble``) and a render counts its instances and slots; both
+are off, one check each, unless tracing is on.
+
 With ``mesh=`` (a ``torch.distributed`` DeviceMesh) both renders shard the
 tile grid over ``tile_axis`` (``parallel/sharded.py``): every rank calls
 with the same inputs, renders its run of tiles, and gets back the whole
@@ -46,6 +52,7 @@ from ..camera import Camera
 from ..config import RasterConfig
 from ..parallel import shard_bin, sharded
 from ..parallel.mesh import axis_size, check_mesh
+from ..utils import profiling as prof
 from . import blend
 from .binning import Binned, bin_gaussians, default_max_instances
 from .kernels.render import (FEAT, CoreOutputs, core_bwd, core_fwd,
@@ -72,14 +79,16 @@ class _RenderCore(torch.autograd.Function):
     def forward(ctx, feat, gauss_sorted, tile_start, tile_stop, gt_tiles,
                 inv, gauss_start, gauss_stop, cfg, tiles_x, height, width,
                 shard):
-        table = feat[gauss_sorted].contiguous()            # [cap, 11]
         core_kw = dict(cfg=cfg, tiles_x=tiles_x, height=height, width=width)
-        if shard is None:
-            out = local = core_fwd(table, tile_start, tile_stop, gt_tiles,
-                                   **core_kw)
-        else:
-            out, local = sharded.core_fwd_sharded(
-                table, tile_start, tile_stop, gt_tiles, shard, **core_kw)
+        with prof.span("render.core_fwd"):
+            table = feat[gauss_sorted].contiguous()        # [cap, 11]
+            if shard is None:
+                out = local = core_fwd(table, tile_start, tile_stop,
+                                       gt_tiles, **core_kw)
+            else:
+                out, local = sharded.core_fwd_sharded(
+                    table, tile_start, tile_stop, gt_tiles, shard,
+                    **core_kw)
         ctx.mark_non_differentiable(out.n_contrib, out.n_valid, out.midx,
                                     out.npix_inst)
         ctx.set_materialize_grads(False)
@@ -103,29 +112,33 @@ class _RenderCore(torch.autograd.Function):
         nones = (None,) * 12
         if all(c is None for c in cots):
             return (None,) + nones
-        # a missing cotangent is a zero of the global (tile-sharded: of
-        # this rank's slice) shape, which its totals have here
-        t = tile_start.shape[0]
-        zero = lambda c, like: torch.zeros(
-            (t,) + tuple(like.shape[1:]), dtype=like.dtype,
-            device=like.device) if c is None else c.contiguous()
-        cots = (zero(d_color, color), zero(d_depth, depth),
-                zero(d_weight, weight), zero(d_var, var),
-                zero(d_median, depth), zero(d_tfinal, t_final))
-        kw = dict(want_med=d_median is not None, want_var=d_var is not None,
-                  n_contrib=n_contrib, **core_kw)
-        totals = (color, depth, weight, var, t_final)
-        if shard is None:
-            rows = core_bwd(table, tile_start, tile_stop, gt_tiles, totals,
-                            cots, **kw)
-        else:
-            rows = sharded.core_bwd_sharded(table, tile_start, tile_stop,
-                                            gt_tiles, totals, cots, shard,
-                                            **kw)
-        g = segment_sum_rows(rows, inv, gauss_start, gauss_stop)  # [P, 12]
-        # the median and variance rows both belong to depth_sgview
-        d_feat = torch.cat([g[:, :10], (g[:, 10] + g[:, 11])[:, None]], 1)
-        return (d_feat,) + nones
+        with prof.span("render.core_bwd"):
+            # a missing cotangent is a zero of the global (tile-sharded: of
+            # this rank's slice) shape, which its totals have here
+            t = tile_start.shape[0]
+            zero = lambda c, like: torch.zeros(
+                (t,) + tuple(like.shape[1:]), dtype=like.dtype,
+                device=like.device) if c is None else c.contiguous()
+            cots = (zero(d_color, color), zero(d_depth, depth),
+                    zero(d_weight, weight), zero(d_var, var),
+                    zero(d_median, depth), zero(d_tfinal, t_final))
+            kw = dict(want_med=d_median is not None,
+                      want_var=d_var is not None, n_contrib=n_contrib,
+                      **core_kw)
+            totals = (color, depth, weight, var, t_final)
+            if shard is None:
+                rows = core_bwd(table, tile_start, tile_stop, gt_tiles,
+                                totals, cots, **kw)
+            else:
+                rows = sharded.core_bwd_sharded(
+                    table, tile_start, tile_stop, gt_tiles, totals, cots,
+                    shard, **kw)
+            g = segment_sum_rows(rows, inv, gauss_start,
+                                 gauss_stop)                    # [P, 12]
+            # the median and variance rows both belong to depth_sgview
+            d_feat = torch.cat([g[:, :10], (g[:, 10] + g[:, 11])[:, None]],
+                               1)
+            return (d_feat,) + nones
 
 
 def count_instances(means3D, camera: Camera, cfg: RasterConfig = None, *,
@@ -145,12 +158,22 @@ def count_instances(means3D, camera: Camera, cfg: RasterConfig = None, *,
     return prep.tiles_touched.to(torch.int64).sum()
 
 
+def _preprocess(means3D, camera: Camera, cfg: RasterConfig, **prep_kw):
+    """``preprocess`` inside its span, counting the slots it projects."""
+    if prof.tracing():
+        prof.count("render.gaussians", means3D.shape[0])
+    with prof.span("render.preprocess"):
+        return preprocess(means3D, camera, cfg, **prep_kw)
+
+
 def _bin(prep, camera: Camera, cfg: RasterConfig, max_instances: int):
     tiles_x, tiles_y = grid_dims(camera.height, camera.width, cfg.tile_h,
                                  cfg.tile_w)
-    return bin_gaussians(prep, tiles_x, tiles_y, max_instances,
-                         tile_w=cfg.tile_w, tile_h=cfg.tile_h,
-                         alpha_min=cfg.alpha_min, margin_px=cfg.bin_margin_px)
+    with prof.span("render.binning"):
+        return bin_gaussians(prep, tiles_x, tiles_y, max_instances,
+                             tile_w=cfg.tile_w, tile_h=cfg.tile_h,
+                             alpha_min=cfg.alpha_min,
+                             margin_px=cfg.bin_margin_px)
 
 
 def bin_for_view(means3D, camera: Camera, cfg: RasterConfig = None, *,
@@ -171,7 +194,7 @@ def bin_for_view(means3D, camera: Camera, cfg: RasterConfig = None, *,
         max_instances = cfg.max_instances or default_max_instances(
             means3D.shape[0], cfg.instance_multiplier)
     with torch.no_grad():
-        prep = preprocess(
+        prep = _preprocess(
             means3D, camera, cfg, opacities=opacities, scales=scales,
             rotations=rotations, cov3D_precomp=cov3D_precomp, shs=shs,
             sh_degree=sh_degree, colors_precomp=colors_precomp,
@@ -185,9 +208,18 @@ def prepare(means3D, camera: Camera, cfg: RasterConfig, max_instances: int,
     ``binn`` is given), the per-Gaussian feature table ``feat`` [P, 11] and
     the tile-major ground-truth depth.  Returns
     ``(prep, binn, feat, gt_tiles)``."""
-    prep = preprocess(means3D, camera, cfg, **prep_kw)
+    prep = _preprocess(means3D, camera, cfg, **prep_kw)
     if binn is None:
         binn = _bin(prep, camera, cfg, max_instances)
+    if prof.tracing():
+        # the true instance count, the instances that fit the slots sorted
+        # and walked, the slots, the overflow flag (device values copied
+        # to the host without a wait)
+        slots = binn.gauss_id.shape[0]
+        prof.count("render.instances", binn.num_rendered)
+        prof.count("render.filled", binn.num_rendered, cap=slots)
+        prof.count("render.slots", slots)
+        prof.count("render.overflows", binn.overflow)
     gt_tiles = img_to_tiles(gt_depth, cfg.tile_h, cfg.tile_w).contiguous()
     return prep, binn, feature_table(prep), gt_tiles
 
@@ -320,15 +352,19 @@ def rasterize(means3D, camera: Camera, cfg: RasterConfig = None, *,
         return _shard_binned(means3D, camera, cfg, mesh, tile_axis,
                              max_instances, max_instances_per_shard, bg,
                              gt_depth, prep_kw)
-    prep, binn, feat, gt_tiles = prepare(
-        means3D, camera, cfg, max_instances, gt_depth, binn=binn, **prep_kw)
-    shard = None if mesh is None else sharded.tile_shard(mesh, tile_axis)
-    out = CoreOutputs(*_RenderCore.apply(
-        feat, binn.gauss_id, binn.tile_start, binn.tile_stop, gt_tiles,
-        binn.inv, binn.gauss_start, binn.gauss_stop, cfg, tiles_x, h, w,
-        shard))
-    return _outputs(_gaussian_sums(out, binn), prep, binn.num_rendered,
-                    binn.overflow, bg, cfg, h, w)
+    with prof.span("render"):
+        prep, binn, feat, gt_tiles = prepare(
+            means3D, camera, cfg, max_instances, gt_depth, binn=binn,
+            **prep_kw)
+        shard = None if mesh is None else sharded.tile_shard(mesh,
+                                                             tile_axis)
+        out = CoreOutputs(*_RenderCore.apply(
+            feat, binn.gauss_id, binn.tile_start, binn.tile_stop, gt_tiles,
+            binn.inv, binn.gauss_start, binn.gauss_stop, cfg, tiles_x, h, w,
+            shard))
+        with prof.span("render.assemble"):
+            return _outputs(_gaussian_sums(out, binn), prep,
+                            binn.num_rendered, binn.overflow, bg, cfg, h, w)
 
 
 def _shard_binned(means3D, camera: Camera, cfg: RasterConfig, mesh,
@@ -383,11 +419,12 @@ def pose_jvp_tables(means3D, camera: Camera, cfg: RasterConfig,
         return (pv.xy, pv.depth) + ((pv.conic,) if full else ())
 
     view = camera.viewmatrix
-    # all K directions in one batched forward-mode pass: [K, P, ...]
-    tans = torch.func.vmap(lambda t: torch.func.jvp(
-        feats_of_view, (view,), (t,))[1])(view_tangents.to(view.dtype))
-    tan_feat = torch.cat([tans[0], tans[1][..., None], *tans[2:]], -1)
-    tan_feat = tan_feat.movedim(0, 1).reshape(p, -1)  # [P, per_k * K]
+    with prof.span("render.tangents"):
+        # all K directions in one batched forward-mode pass: [K, P, ...]
+        tans = torch.func.vmap(lambda t: torch.func.jvp(
+            feats_of_view, (view,), (t,))[1])(view_tangents.to(view.dtype))
+        tan_feat = torch.cat([tans[0], tans[1][..., None], *tans[2:]], -1)
+        tan_feat = tan_feat.movedim(0, 1).reshape(p, -1)  # [P, per_k * K]
     if max_instances is None:
         max_instances = cfg.max_instances or default_max_instances(
             p, cfg.instance_multiplier)
@@ -440,26 +477,29 @@ def rasterize_with_pose_jvp(means3D, camera: Camera, cfg: RasterConfig,
                    cov3D_precomp=cov3D_precomp, shs=shs, sh_degree=sh_degree,
                    colors_precomp=colors_precomp,
                    scale_modifier=scale_modifier)
-    with torch.no_grad():
+    with torch.no_grad(), prof.span("render.jvp"):
         prep, binn, table, tans, gt_tiles = pose_jvp_tables(
             means3D, camera, cfg, view_tangents, max_instances, gt_depth,
             binn=binn, **prep_kw)
         tiles_x, _ = grid_dims(h, w, cfg.tile_h, cfg.tile_w)
         core_kw = dict(cfg=cfg, tiles_x=tiles_x, height=h, width=w,
                        full=full)
-        if mesh is None:
-            out, tano = core_fwd_jvp(table, tans, binn.tile_start,
-                                     binn.tile_stop, gt_tiles, **core_kw)
-        else:
-            out, tano = sharded.core_fwd_jvp_sharded(
-                table, tans, binn.tile_start, binn.tile_stop, gt_tiles,
-                sharded.tile_shard(mesh, tile_axis), **core_kw)
-        primal = _outputs(_gaussian_sums(out, binn), prep,
-                          binn.num_rendered, binn.overflow, bg, cfg, h, w)
-        to_img = lambda x: tiles_to_img(x.movedim(0, -2), h, w, cfg.tile_h,
-                                        cfg.tile_w)
-        dcolor = to_img(tano.color + tano.t_final[:, :, None, :]
-                        * bg[None, None, :, None])     # [K, C, H, W]
-    return PoseJvpOutputs(out=primal, color=dcolor, depth=to_img(tano.depth),
-                          opacity_map=to_img(tano.weight),
-                          depth_median=to_img(tano.median))
+        with prof.span("render.core_jvp"):
+            if mesh is None:
+                out, tano = core_fwd_jvp(table, tans, binn.tile_start,
+                                         binn.tile_stop, gt_tiles, **core_kw)
+            else:
+                out, tano = sharded.core_fwd_jvp_sharded(
+                    table, tans, binn.tile_start, binn.tile_stop, gt_tiles,
+                    sharded.tile_shard(mesh, tile_axis), **core_kw)
+        with prof.span("render.assemble"):
+            primal = _outputs(_gaussian_sums(out, binn), prep,
+                              binn.num_rendered, binn.overflow, bg, cfg, h, w)
+            to_img = lambda x: tiles_to_img(x.movedim(0, -2), h, w,
+                                            cfg.tile_h, cfg.tile_w)
+            dcolor = to_img(tano.color + tano.t_final[:, :, None, :]
+                            * bg[None, None, :, None])     # [K, C, H, W]
+            return PoseJvpOutputs(
+                out=primal, color=dcolor, depth=to_img(tano.depth),
+                opacity_map=to_img(tano.weight),
+                depth_median=to_img(tano.median))

@@ -110,6 +110,14 @@ def test_tool_prints_its_lines(name, capsys, tmp_path):
         assert Path(lines[0]["trace"]) == tmp_path / f"{tool}.json"
         assert json.loads(Path(lines[0]["trace"]).read_text())
         assert lines[0]["ops"] == [] and lines[0]["host_syncs"] is None
+        # the program's records a step: host times, stream times null
+        table = lines[0]["spans"]
+        top = "render" if mod is prof_trace else "track.frame"
+        assert table["spans"][top]["calls"] == 1.0
+        for s in table["spans"].values():
+            assert positive(s["host_ms"]) and s["host_self_ms"] >= 0
+            assert s["stream_ms"] is None and s["stream_self_ms"] is None
+        assert table["counters"]["render.slots"] > 0
     if mod is prof_ab:
         assert lines[1]["overrides"] == {"tile_h": 16, "tile_w": 16}
         assert (lines[0]["tile"], lines[1]["tile"]) == ("32x32", "16x16")
