@@ -161,7 +161,14 @@ the tracking benchmark's frame (``bench_tracking.py``: 100,000 Gaussians,
    ``segment_sum_rows`` (F = 2 and 12) with phase 3's launches a step;
    ``prof_jvp``'s dual renders one ``render_jvp`` launch a step;
    ``prof_track``'s table; ``prof_ab`` on ``tile_h=16 tile_w=16``, and its
-   refusal of a TPU-only field.
+   refusal of a TPU-only field;
+11. the preprocess kernel pair (``preprocess_fwd``, ``preprocess_bwd``)
+   against the composite ``ops/projection.py::preprocess`` on the card at
+   the mapping cell's 500k room and its first 120,000 slots (the table,
+   the integer footprint, the gradients of a map step's leaves and of the
+   view), its device times beside its bounds, the plain versions' and the
+   composite's autograd backward's, and its launches in a 4-keyframe map
+   step and a tracked frame (phase 5 prints them a SLAM frame).
 
 Prints the card's name and power limit, a ``kernels`` JSON line, a
 ``slam`` JSON line, a ``mesh`` JSON line, a ``drivers`` JSON line, a
@@ -1197,7 +1204,8 @@ SLAM_ATE_MAX_CM = 2.0
 SLAM_KERNEL_FNS = ("render_fwd_kernel", "tile_scatter_sum_kernel",
                    "segment_sum_kernel", "render_bwd_kernel",
                    "segment_sum_rows_kernel", "segment_sum_rows_any_kernel",
-                   "render_jvp_kernel")
+                   "render_jvp_kernel", "preprocess_fwd_kernel",
+                   "preprocess_bwd_kernel", "preprocess_view_kernel")
 
 
 class _Recorder:
@@ -1430,6 +1438,8 @@ def slam_record(dev, check, card):
     from diff_gaussian_rasterization_tpu_torch.io.replica import (
         ate_rmse, ate_rmse_aligned)
     from diff_gaussian_rasterization_tpu_torch.models import runner
+    from diff_gaussian_rasterization_tpu_torch.ops.kernels import (
+        preprocess as prep_k)
     from diff_gaussian_rasterization_tpu_torch.ops.kernels import render
     args = bench_ate.parse_args([])
     scfg = bench_ate.slam_config(args)
@@ -1496,6 +1506,7 @@ def slam_record(dev, check, card):
     log(f"[slam] frame {i0} (keyframe, round and refinement) took "
         f"{time.perf_counter() - t4:.1f} s")
     render.reset_launches()
+    prep_k.reset_launches()
     # device activity only: with the host's operator events the profile of
     # three SLAM frames holds hundreds of thousands of events, and reading
     # it back takes minutes
@@ -1507,7 +1518,8 @@ def slam_record(dev, check, card):
                                         i0 + k)
         torch.cuda.synchronize()
         prof_wall = (time.perf_counter() - t2) * 1e3
-    per_frame = {k: v / 3 for k, v in render.launches.items()}
+    per_frame = {k: v / 3 for k, v in {**render.launches,
+                                       **prep_k.launches}.items()}
     rows = sorted(device_events(prof), key=device_us, reverse=True)
     log(f"[slam] the three profiled frames took {prof_wall / 1e3:.1f} s, "
         f"the profile {time.perf_counter() - t3:.1f} s with its read-back")
@@ -2884,7 +2896,11 @@ def prof_phase(check, want, rows_want, dev):
     import torch
     from diff_gaussian_rasterization_tpu_torch.examples import (
         bench as ex_bench, prof, prof_ab, prof_bin, prof_jvp)
-    from diff_gaussian_rasterization_tpu_torch.ops.rasterize import prepare
+    from diff_gaussian_rasterization_tpu_torch.ops.kernels.preprocess import (
+        feature_table)
+    from diff_gaussian_rasterization_tpu_torch.ops.projection import (
+        preprocess)
+    from diff_gaussian_rasterization_tpu_torch.ops.rasterize import _bin
     stages = {"prof": len(prof.STAGES), "prof_bin": len(prof_bin.STAGES),
               "prof_jvp": len(prof_jvp.STAGES),
               "prof_ab": len(prof_ab.CONFIGS), "prof_trace": 1,
@@ -2923,18 +2939,22 @@ def prof_phase(check, want, rows_want, dev):
                   f"its path's kernels")
         out[tool]["ok"] = ok
     shutil.rmtree(traces, ignore_errors=True)
-    # prof_bin's prefix pipeline against the binning it stands for
+    # prof_bin's prefix pipeline against the binning it stands for, over
+    # the preprocess it times (the composite, the render op's plain
+    # version; the render op itself runs the kernel pair)
     args = ex_bench.parse_args([])
     means, kw, cam, cfg = ex_bench.scene(args, dev)
     with torch.no_grad():
         o = prof_bin.pipelines(kw, cam, cfg)["s6 +gather"](means)
-        _, binn, feat, _ = prepare(means, cam, cfg, cfg.max_instances,
-                                   kw["gt_depth"], **prof.prep_kwargs(kw))
+        prep_c = preprocess(means, cam, cfg, **prof.prep_kwargs(kw))
+        binn = _bin(prep_c, cam, cfg, cfg.max_instances)
+        feat = feature_table(prep_c)
     check(all(torch.equal(a, b) for a, b in (
         (o["table"], feat[binn.gauss_id]), (o["tile_start"], binn.tile_start),
         (o["tile_stop"], binn.tile_stop), (o["inv"], binn.inv))),
         "prof_bin's last stage (table, ranges, inverse) bit-equal to "
-        "bin_gaussians + the gather at the bench scene")
+        "bin_gaussians + the gather over the composite preprocess at the "
+        "bench scene")
     try:
         prof_ab.main(["scan_sum_mm=true", "tile_h=16"])
         refused = False
@@ -2943,6 +2963,228 @@ def prof_phase(check, want, rows_want, dev):
     check(refused, "prof_ab refuses a TPU-only field (scan_sum_mm), naming "
                    "it")
     return out
+
+
+# The preprocess phase's scenes: the mapping cell's 500k room and its first
+# 120,000 slots (tum-slam's capacity), at the Replica camera.
+PREP_SIZES = (("500k", None), ("120k", 120_000))
+PREP_WALL_RES = 240
+# where the kernel and the float32 composite both sit at float32's
+# resolution against float64, their ratio is noise (tests/test_torch_cuda.py)
+PREP_ERR_FLOOR = 2.0 ** -22
+
+
+def queued_ms(fn, iters=100, sleep_cycles=200_000_000):
+    """Device time a call of ``fn``, by CUDA events over ``iters`` calls
+    queued behind a sleep kernel, so that the card runs them back to back
+    however long the host takes a call; and whether the host had queued
+    them all before the card reached the first (else the time holds the
+    host's gaps)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(sleep_cycles)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    ahead = not t0.query()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / iters, ahead
+
+
+def preprocess_phase(dev, check, card):
+    """11. The preprocess kernel pair (``ops/kernels/preprocess.py``) at the
+    mapping cell's 500k room and its first 120,000 slots: against the
+    composite in float64 on the card, each table column and the gradient
+    of each of a map step's leaves and of the Adam tracker's view no
+    further off than twice the float32 composite's own error (or 2**-22 of
+    the largest entry), and the integer footprint off the float64 one on
+    no more Gaussians than the float32 composite's; the device times of the
+    forward, the backward of a map step's leaves and of the view alone
+    (``queued_ms`` through the wrappers), each beside its bound
+    (``splatbench/work.py``'s counts), the plain versions' and the
+    composite's autograd backward's (``device_ms``); and the launches of a
+    4-keyframe map step and of a tracked frame."""
+    import torch
+    from splatbench import work
+    from diff_gaussian_rasterization_tpu_torch.camera import Camera
+    from diff_gaussian_rasterization_tpu_torch.config import RasterConfig
+    from diff_gaussian_rasterization_tpu_torch.io import synthetic
+    from diff_gaussian_rasterization_tpu_torch.models.gaussians import (
+        DensifyState)
+    from diff_gaussian_rasterization_tpu_torch.models.slam import (
+        MappingConfig, make_map_optimizer, map_step, track_frame)
+    from diff_gaussian_rasterization_tpu_torch.ops import projection
+    from diff_gaussian_rasterization_tpu_torch.ops.kernels import (
+        preprocess as kp)
+    from diff_gaussian_rasterization_tpu_torch.scenes import tracking_frame
+    room = synthetic.replica_like_model(seed=0, wall_res=PREP_WALL_RES,
+                                        device=dev)
+    views = synthetic.walkthrough_trajectory(8, seed=0, device=dev)
+    cam = Camera(viewmatrix=views[1], tanfovx=1.0, tanfovy=680 / 1200,
+                 height=680, width=1200)
+    cfg = RasterConfig(tile_h=32, tile_w=32)
+
+    def composite(*args, **kw):
+        prep = projection.preprocess(*args, **kw)
+        return prep, kp.feature_table(prep)
+
+    def rel_err(x, ref):
+        return float((x.double() - ref).abs().max()
+                     / ref.abs().max().clamp_min(1e-300))
+
+    def int_off(prep, ref):
+        bad = torch.zeros(ref.mask.shape, dtype=torch.bool, device=dev)
+        for f in ("mask", "radius", "rect_min", "rect_max",
+                  "tiles_touched"):
+            d = getattr(prep, f) != getattr(ref, f)
+            bad |= d if d.dim() == 1 else d.any(1)
+        return int(bad.sum())
+
+    rows = {}
+    for tag, n in PREP_SIZES:
+        kw = {k: v.detach()[:n] for k, v in room.raster_kwargs().items()
+              if torch.is_tensor(v)}
+        means = room.means3D.detach()[:n]
+        p = means.shape[0]
+        m2d = torch.zeros((p, 2), device=dev)
+        d_feat = torch.randn((p, 11), device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(0))
+        leaves = {"means3D": means, "opacities": kw["opacities"],
+                  "scales": kw["scales"], "rotations": kw["rotations"],
+                  "shs": kw["shs"], "means2D": m2d}
+        rest = lambda d: {k: v for k, v in d.items() if k != "means3D"}
+
+        def run(op, dtype, want_view):
+            """``op``'s footprint, table and the gradients of <table,
+            d_feat>: of a map step's leaves, or of the view alone."""
+            lv = {k: v.to(dtype).clone().requires_grad_(not want_view)
+                  for k, v in leaves.items()}
+            view = cam.viewmatrix.to(dtype).clone().requires_grad_(want_view)
+            prep, feat = op(lv["means3D"], cam.replace(viewmatrix=view), cfg,
+                            sh_degree=0, **rest(lv))
+            wrt = {"view": view} if want_view else lv
+            g = torch.autograd.grad(feat, list(wrt.values()),
+                                    d_feat.to(dtype))
+            return prep, feat.detach(), dict(zip(wrt, g))
+
+        errs, ok = {}, True
+        for want_view in (False, True):
+            ref, comp, kern = (run(op, dt, want_view) for op, dt in (
+                (composite, torch.float64), (composite, torch.float32),
+                (kp.preprocess_table, torch.float32)))
+            pairs = {} if want_view else {
+                f"table.{c}": (kern[1][:, i], comp[1][:, i], ref[1][:, i])
+                for i, c in enumerate(kp.FEAT_COLUMNS)}
+            pairs.update({f"d.{k}": (kern[2][k], comp[2][k], ref[2][k])
+                          for k in ref[2]})
+            for name, (k, c, r) in pairs.items():
+                ek, ec = rel_err(k, r), rel_err(c, r)
+                # how far the largest entry sits above a typical one
+                spread = float(r.abs().max()
+                               / r.abs().median().clamp_min(1e-300))
+                errs[name] = dict(kernel=ek, composite=ec,
+                                  max_over_median=spread)
+                ok &= ek <= max(2.0 * ec, PREP_ERR_FLOOR)
+                ok &= bool(torch.isfinite(k).all())
+            if not want_view:
+                ints = dict(kernel=int_off(kern[0], ref[0]),
+                            composite=int_off(comp[0], ref[0]),
+                            kernel_vs_composite=int_off(kern[0], comp[0]))
+                ok &= ints["kernel"] <= ints["composite"]
+        log(f"[prep] {tag}: against the float64 composite (largest error "
+            f"over the largest entry): {json.dumps(errs)}; integer "
+            f"footprints differing: {json.dumps(ints)}")
+        check(ok, f"preprocess kernels at {tag}: each table column and "
+                  f"gradient within 2x the float32 composite's error against "
+                  f"float64 (or 2**-22) and finite, the integer footprint "
+                  f"off float64's on no more Gaussians than the composite's")
+
+        ins = kp._kernel_inputs(means, cam.viewmatrix, kw["opacities"],
+                                kw["scales"], kw["rotations"], None,
+                                kw["shs"], 0, None, m2d)
+        need_map = {k: True for k in leaves}
+
+        def fwd():
+            with torch.no_grad():
+                kp.preprocess_table(means, cam, cfg, sh_degree=0,
+                                    **rest(leaves))
+
+        timed = {"fwd": fwd,
+                 "bwd": lambda: kp.launch_preprocess_bwd(
+                     ins, d_feat, cam, cfg, 0, 1.0, need_map),
+                 "bwd_view": lambda: kp.launch_preprocess_bwd(
+                     ins, d_feat, cam, cfg, 0, 1.0, {"view": True})}
+        ms, ahead = {}, {}
+        for k, f in timed.items():
+            ms[k], ahead[k] = queued_ms(f)
+        check(all(ahead.values()) and all(ms[k] > 0 for k in timed),
+              f"preprocess: the kernels' times at {tag} measured with every "
+              f"call queued ahead of the card")
+        # the plain versions, and the composite's autograd backward (the
+        # path the kernels replace)
+        ms["plain_fwd"] = device_ms(lambda: kp.preprocess_fwd_reference(
+            means, cam, cfg, sh_degree=0, **rest(leaves)), iters=5)
+        ms["plain_bwd"] = device_ms(lambda: kp.preprocess_bwd_reference(
+            d_feat, means, cam, cfg, scales=kw["scales"],
+            rotations=kw["rotations"], shs=kw["shs"], sh_degree=0,
+            want_view=False), iters=5)
+        lv = {k: v.clone().requires_grad_(True) for k, v in leaves.items()}
+        fc = kp.feature_table(projection.preprocess(
+            lv["means3D"], cam, cfg, sh_degree=0, **rest(lv)))
+        ms["composite_bwd"] = device_ms(lambda: torch.autograd.grad(
+            fc, list(lv.values()), d_feat, retain_graph=True), iters=5)
+        bound = {k: work.bound_s(*work.preprocess(p, backward=b)) * 1e3
+                 for k, b in (("fwd", False), ("bwd", True))}
+        rows[tag] = dict(p=p, ms=ms, bound_ms=bound, errors=errs,
+                         ints_differing=ints)
+        log(f"[prep] {card}: {tag} ({p} Gaussians) device ms "
+            f"{json.dumps({k: round(v, 4) for k, v in ms.items()})}; "
+            f"bounds (bytes) {json.dumps({k: round(v, 4) for k, v in bound.items()})} "
+            f"ms: forward {ms['fwd'] / bound['fwd']:.1f}x, backward "
+            f"{ms['bwd'] / bound['bwd']:.1f}x (the kernels by CUDA events "
+            f"over 100 calls queued behind a sleep, the rest by "
+            f"torch.profiler)")
+
+    # launches of a 4-keyframe map step at 500k and of a tracked frame
+    model = synthetic.replica_like_model(seed=0, wall_res=PREP_WALL_RES,
+                                         device=dev)
+    mcfg = MappingConfig()
+    opt = make_map_optimizer(model, mcfg)
+    dstate = DensifyState.zero(model.capacity, device=dev)
+    k = 4
+    rgbs = torch.zeros((k, 3, 680, 1200), device=dev)
+    depths = torch.zeros((k, 680, 1200), device=dev)
+    map_args = (views[:k], rgbs, depths, torch.ones(k, device=dev),
+                cfg.replace(max_instances=8 << 20), mcfg, 680, 1200, 1.0,
+                680 / 1200, k)
+    map_step(model, opt, dstate, *map_args)
+    torch.cuda.synchronize()
+    kp.reset_launches()
+    map_step(model, opt, dstate, *map_args)
+    torch.cuda.synchronize()
+    map_launches = dict(kp.launches)
+    ts = tracking_frame(device=dev)
+    kp.reset_launches()
+    track_frame(ts.model, ts.view0, ts.frame, ts.cfg, ts.tcfg, ts.camera)
+    torch.cuda.synchronize()
+    track_launches = dict(kp.launches)
+    log(f"[prep] launches: a 4-keyframe map step at 500k {map_launches}; a "
+        f"tracked frame (record configuration) {track_launches}")
+    check(map_launches == {"preprocess_fwd": k, "preprocess_bwd": k},
+          "preprocess: one forward and one backward launch a keyframe of a "
+          "map step")
+    check(track_launches["preprocess_fwd"] > 0
+          and track_launches["preprocess_bwd"] == 0,
+          "preprocess: a tracked frame launches the forward, no backward")
+    return dict(name="preprocess", route="cuda",
+                source="diff_gaussian_rasterization_tpu_torch/ops/kernels/"
+                       "csrc/preprocess.cu", replaces=None,
+                sizes=rows, launches_map_step=map_launches,
+                launches_tracked_frame=track_launches)
 
 
 def main():
@@ -3379,6 +3621,10 @@ def main():
                        dev)
     log(f"[phase] 10 took {time.time() - t10:.1f} s")
 
+    # ---- 11. the preprocess kernel pair -----------------------------
+    log(f"[phase] 11 starts at +{time.time() - t_main:.1f} s")
+    prep_entry = preprocess_phase(dev, check, card)
+
     # the largest errors over both scales' comparisons and the SLAM run's
     err_fwd, err_bwd, err_rows, err_u, err_ts = (
         max(bench[k], mapped[k], slam_errs[k])
@@ -3443,7 +3689,7 @@ def main():
              ("segment_sum_rows_500k", "500k", rows_map.get(12, 0),
               err_rows),
              ("segment_sum_rows_f2", "f2", rows_fwd.get(2, 0), err_u))
-         ] + jvp_entries + basis_entries
+         ] + jvp_entries + basis_entries + [prep_entry]
     log(f"[phase] done at +{time.time() - t_main:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"slam": slam}))

@@ -59,8 +59,8 @@ def pipelines(kw, cam, cfg):
     import torch
 
     from ..ops import binning
+    from ..ops.kernels.preprocess import feature_table
     from ..ops.projection import preprocess
-    from ..ops.rasterize import feature_table
     from ..ops.tiling import grid_dims
     prep_kw = prep_kwargs(kw)
     tiles_x, tiles_y = grid_dims(cam.height, cam.width, cfg.tile_h,

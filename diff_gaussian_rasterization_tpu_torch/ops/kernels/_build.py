@@ -52,6 +52,10 @@ SIGNATURES = {
                        _I, _I, _F, _F, _F, _I, _I, _I, _I, _I, _P, _P],
         "render_jvp_cull_boxes": [_P, _I, _F, _P, _P],
     },
+    "preprocess": {
+        "preprocess_fwd": [_P] * 15,
+        "preprocess_bwd": [_P] * 20,
+    },
 }
 
 _libs: dict = {}

@@ -3,7 +3,10 @@
 
 Pipeline::
 
-  preprocess          per-Gaussian projection, plain autograd-capable torch
+  preprocess          per-Gaussian projection and the feature table, one
+                      torch.autograd.Function (``kernels/preprocess.py``:
+                      the preprocess_fwd / _bwd kernels on the card, the
+                      composite and its closed-form backward on the CPU)
   -> bin_gaussians    instance expansion + stable (tile, depth) sort
   -> render core      one row gather of the sorted feature table, then the
                       forward blend (the CUDA kernel on the card, the plain
@@ -17,7 +20,8 @@ gradient row per instance and ``segment_sum_rows`` reduces them, in order,
 onto the Gaussians (both CUDA kernels on the card, their plain versions on
 the CPU); no float atomics, so gradients are bit-reproducible.  Every other
 gradient (conic -> covariance -> scale/rotation/mean, the screen position
--> mean and view matrix, SH -> color) is autograd through ``preprocess``.
+-> mean and view matrix, SH -> color) is the preprocess's closed-form
+backward, bit-reproducible too.
 Median depth and the variance's direct term read the pose-stopped depth
 copy (column 10 of the feature table), so they move the means but never
 the pose.  ``track_off``/``map_off`` detach the view matrix or the Gaussian
@@ -55,6 +59,7 @@ from ..parallel.mesh import axis_size, check_mesh
 from ..utils import profiling as prof
 from . import blend
 from .binning import Binned, bin_gaussians, default_max_instances
+from .kernels.preprocess import preprocess_table
 from .kernels.render import (FEAT, CoreOutputs, core_bwd, core_fwd,
                              core_fwd_jvp)
 from .kernels.segment_sum import segment_sum_rows
@@ -150,20 +155,25 @@ def count_instances(means3D, camera: Camera, cfg: RasterConfig = None, *,
     to size ``max_instances``.  Accepts and ignores the rest of
     :func:`rasterize`'s keywords."""
     cfg = RasterConfig() if cfg is None else cfg
-    prep = preprocess(
-        means3D, camera, cfg, opacities=opacities, scales=scales,
-        rotations=rotations, cov3D_precomp=cov3D_precomp, shs=shs,
-        sh_degree=sh_degree, colors_precomp=colors_precomp,
-        scale_modifier=scale_modifier)
+    with torch.no_grad():
+        prep, _ = preprocess_table(
+            means3D, camera, cfg, opacities=opacities, scales=scales,
+            rotations=rotations, cov3D_precomp=cov3D_precomp, shs=shs,
+            sh_degree=sh_degree, colors_precomp=colors_precomp,
+            scale_modifier=scale_modifier)
     return prep.tiles_touched.to(torch.int64).sum()
 
 
 def _preprocess(means3D, camera: Camera, cfg: RasterConfig, **prep_kw):
-    """``preprocess`` inside its span, counting the slots it projects."""
+    """``preprocess_table`` inside its span, counting the slots it projects
+    (``render.gaussians``) and, on the card, the slots its kernel projects
+    (``render.prep_kernel``).  Returns ``(prep, feat)``."""
     if prof.tracing():
         prof.count("render.gaussians", means3D.shape[0])
+        if means3D.is_cuda:
+            prof.count("render.prep_kernel", means3D.shape[0])
     with prof.span("render.preprocess"):
-        return preprocess(means3D, camera, cfg, **prep_kw)
+        return preprocess_table(means3D, camera, cfg, **prep_kw)
 
 
 def _bin(prep, camera: Camera, cfg: RasterConfig, max_instances: int):
@@ -194,7 +204,7 @@ def bin_for_view(means3D, camera: Camera, cfg: RasterConfig = None, *,
         max_instances = cfg.max_instances or default_max_instances(
             means3D.shape[0], cfg.instance_multiplier)
     with torch.no_grad():
-        prep = _preprocess(
+        prep, _ = _preprocess(
             means3D, camera, cfg, opacities=opacities, scales=scales,
             rotations=rotations, cov3D_precomp=cov3D_precomp, shs=shs,
             sh_degree=sh_degree, colors_precomp=colors_precomp,
@@ -208,7 +218,7 @@ def prepare(means3D, camera: Camera, cfg: RasterConfig, max_instances: int,
     ``binn`` is given), the per-Gaussian feature table ``feat`` [P, 11] and
     the tile-major ground-truth depth.  Returns
     ``(prep, binn, feat, gt_tiles)``."""
-    prep = _preprocess(means3D, camera, cfg, **prep_kw)
+    prep, feat = _preprocess(means3D, camera, cfg, **prep_kw)
     if binn is None:
         binn = _bin(prep, camera, cfg, max_instances)
     if prof.tracing():
@@ -221,14 +231,7 @@ def prepare(means3D, camera: Camera, cfg: RasterConfig, max_instances: int,
         prof.count("render.slots", slots)
         prof.count("render.overflows", binn.overflow)
     gt_tiles = img_to_tiles(gt_depth, cfg.tile_h, cfg.tile_w).contiguous()
-    return prep, binn, feature_table(prep), gt_tiles
-
-
-def feature_table(prep):
-    """The per-Gaussian feature table [P, 11] the render core gathers."""
-    return torch.cat(
-        [prep.xy, prep.conic, prep.opacity[:, None], prep.color,
-         prep.depth[:, None], prep.depth_sgview[:, None]], dim=1)
+    return prep, binn, feat, gt_tiles
 
 
 def _gaussian_sums(out: CoreOutputs, binn: Binned) -> CoreOutputs:
@@ -376,12 +379,12 @@ def _shard_binned(means3D, camera: Camera, cfg: RasterConfig, mesh,
     if cap_per_shard is None:
         cap_per_shard = shard_bin.default_cap_per_shard(
             max_instances, axis_size(mesh, tile_axis))
-    prep = preprocess(means3D, camera, cfg, **prep_kw)
+    prep, feat = preprocess_table(means3D, camera, cfg, **prep_kw)
     gt_tiles = img_to_tiles(gt_depth, cfg.tile_h, cfg.tile_w).contiguous()
     sb = shard_bin.make_shard_binned_core(
         mesh, tile_axis, prep, gt_tiles, cfg=cfg, tiles_x=tiles_x,
         tiles_y=tiles_y, cap_per_shard=cap_per_shard, height=h,
-        width=w)(feature_table(prep))
+        width=w)(feat)
     return _outputs(sb.core, prep, sb.num_rendered, sb.overflow, bg, cfg, h,
                     w)
 
@@ -409,16 +412,22 @@ def pose_jvp_tables(means3D, camera: Camera, cfg: RasterConfig,
     core: ``(prep, binn, table, tans, gt_tiles)`` with the sorted feature
     table [I, 11] and the sorted tangent table [I, per_k * K] (per tangent
     dx, dy, ddepth and, with ``cfg.pose_cov2d_branch``, dA, dB, dC), both
-    from one row gather."""
+    from one row gather.  The primal table comes from the preprocess kernel
+    pair (:func:`prepare`); the tangents from the composite
+    ``projection.preprocess`` on any device, since the kernel pair's
+    ``torch.autograd.Function`` has no forward-mode rule."""
     full = bool(cfg.pose_cov2d_branch)
     p = means3D.shape[0]
 
     def feats_of_view(vm):
+        # the composite, by name: the kernel pair has no forward-mode rule
         pv = preprocess(means3D, camera.replace(viewmatrix=vm), cfg,
                         **prep_kw)
         return (pv.xy, pv.depth) + ((pv.conic,) if full else ())
 
     view = camera.viewmatrix
+    if prof.tracing():
+        prof.count("render.gaussians", p)
     with prof.span("render.tangents"):
         # all K directions in one batched forward-mode pass: [K, P, ...]
         tans = torch.func.vmap(lambda t: torch.func.jvp(
@@ -449,8 +458,10 @@ def rasterize_with_pose_jvp(means3D, camera: Camera, cfg: RasterConfig,
     the twist basis ``jacfwd(lambda x: lie.apply_twist(view, x))(xi)``
     moved to the front.  The per-Gaussian tangents of (xy, depth) and,
     with ``cfg.pose_cov2d_branch`` (the full variant), of the conic come
-    from one batched forward-mode pass over the preprocess
-    (``torch.func.vmap`` of ``torch.func.jvp``); the preprocess's detached
+    from one batched forward-mode pass over the composite preprocess
+    (``torch.func.vmap`` of ``torch.func.jvp`` of ``projection.preprocess``,
+    on any device: the kernel pair that computes the primal has no
+    forward-mode rule); the preprocess's detached
     copies of the view make the light variant's conic tangent and the
     median's tangent zero.  The render core is the ``render_jvp`` kernel on
     CUDA tensors and its plain version on CPU tensors.  Forward mode only:

@@ -17,6 +17,8 @@ gradients against the CPU path's at ``test_rasterize.py``'s gradient
 tolerance, rtol 5e-4 / atol 2e-5.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -898,3 +900,285 @@ def test_rasterize_basis_grads_card_match_cpu(dev):
         assert bool(torch.isfinite(card[k]).all()), k
         assert ratio(card, ref, k) <= BASIS_GRAD_LIMIT, (
             k, ratio(card, ref, k), ratio(cpu, ref, k))
+
+
+# --------------------------------------------------------------------------
+# the preprocess kernel pair (ops/kernels/preprocess.py)
+# --------------------------------------------------------------------------
+
+FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
+PREP_SCENES = ("replica_500k", "replica_mini", "tum_mini")
+# the table's columns by output
+PREP_OUTPUTS = dict(xy=slice(0, 2), conic=slice(2, 5), opacity=slice(5, 6),
+                    color=slice(6, 9), depth=slice(9, 10),
+                    depth_sgview=slice(10, 11))
+
+
+def prep_scene(name, variant, seed=0):
+    """A preprocess scene: float64 numpy leaves (``means2D`` zeros), the
+    view, the camera's fields and the config.  ``replica_500k`` is
+    ``io/synthetic.py``'s room at wall resolution 240 (499,712 Gaussians)
+    from a walkthrough pose at the Replica camera; the fixtures' scenes are
+    their first frames back-projected (every pixel) at their poses, with
+    the rotations, scales and SH degree 1 jittered so every gradient
+    route carries weight."""
+    from diff_gaussian_rasterization_tpu_torch.io import replica, synthetic, tum
+    from diff_gaussian_rasterization_tpu_torch.models.gaussians import (
+        init_model)
+    from diff_gaussian_rasterization_tpu_torch.models.runner import (
+        add_gaussians, backproject)
+    rng = np.random.RandomState(seed)
+    if name == "replica_500k":
+        model = synthetic.replica_like_model(seed=seed, wall_res=240,
+                                             device="cpu")
+        view = synthetic.walkthrough_trajectory(
+            4, seed=seed, dtype=torch.float64, device="cpu")[1].numpy()
+        cam = dict(tanfovx=1.0, tanfovy=680 / 1200, height=680, width=1200)
+        cfg = RasterConfig(tile_h=32, tile_w=32)
+    else:
+        if name == "replica_mini":
+            ds = replica.ReplicaDataset(
+                os.path.join(FIXTURES, "replica_mini", "office0"),
+                device="cpu")
+            cfg = RasterConfig(tile_h=16, tile_w=16)
+        else:
+            ds = tum.TUMDataset(os.path.join(FIXTURES, "tum_mini"),
+                                height=60, width=80, fx=57.0, fy=54.0,
+                                cx=39.5, cy=29.5, device="cpu")
+            cfg = RasterConfig(tile_h=8, tile_w=16)
+        view = ds.pose(0).astype(np.float64)
+        tmpl = ds.camera_template(torch.as_tensor(ds.pose(0)))
+        frame = ds.frame(0)
+        model = init_model(ds.height * ds.width, sh_degree=1, device="cpu")
+        add_gaussians(model, *backproject(frame, view, tmpl, 1))
+        cam = dict(tanfovx=tmpl.tanfovx, tanfovy=tmpl.tanfovy,
+                   height=tmpl.height, width=tmpl.width)
+    if variant == "full":
+        cfg = cfg.full_variant()
+    kw = {k: v.detach().double().numpy()
+          for k, v in model.raster_kwargs().items() if torch.is_tensor(v)}
+    p = kw["scales"].shape[0]
+    kw["rotations"] = kw["rotations"] + rng.normal(scale=0.2, size=(p, 4))
+    kw["scales"] = kw["scales"] * np.exp(rng.normal(scale=0.2, size=(p, 3)))
+    if kw["shs"].shape[1] > 1:
+        kw["shs"][:, 1:] = rng.normal(scale=0.2,
+                                      size=kw["shs"][:, 1:].shape)
+    leaves = dict(means3D=model.means3D.detach().double().numpy(), **kw,
+                  means2D=np.zeros((p, 2)))
+    deg = int(round(kw["shs"].shape[1] ** 0.5)) - 1
+    return leaves, view, cam, cfg, deg
+
+
+def prep_run(op, leaves, view, cam, cfg, deg, d_feat, dtype, device):
+    """``op``'s (prep, table, {leaf: gradient}) at ``dtype`` on ``device``:
+    the gradients of <table, d_feat> for every leaf and the view."""
+    from diff_gaussian_rasterization_tpu_torch.camera import Camera
+    t = {k: torch.tensor(v, dtype=dtype, device=device, requires_grad=True)
+         for k, v in {**leaves, "view": view}.items()}
+    kw = {k: x for k, x in t.items() if k not in ("means3D", "view")}
+    prep, feat = op(t["means3D"], Camera(viewmatrix=t["view"], **cam), cfg,
+                    sh_degree=deg, **kw)
+    g = torch.autograd.grad(feat, list(t.values()),
+                            d_feat.to(device=device, dtype=dtype))
+    return prep, feat.detach(), dict(zip(t, g))
+
+
+def composite_op(*args, **kw):
+    from diff_gaussian_rasterization_tpu_torch.ops import projection
+    from diff_gaussian_rasterization_tpu_torch.ops.kernels import (
+        preprocess as kp)
+    prep = projection.preprocess(*args, **kw)
+    return prep, kp.feature_table(prep)
+
+
+def kernel_op(*args, **kw):
+    from diff_gaussian_rasterization_tpu_torch.ops.kernels import (
+        preprocess as kp)
+    return kp.preprocess_table(*args, **kw)
+
+
+def rel_err(x, ref):
+    """Largest error over the largest entry of the float64 reference."""
+    ref = ref.detach().cpu().double()
+    return float((x.detach().cpu().double() - ref).abs().max()
+                 / ref.abs().max().clamp_min(1e-300))
+
+
+def near_boundary(leaves, view, cam, cfg, rel=1e-5):
+    """[P] bool: a Gaussian whose integer footprint rounds a float64 value
+    within ``rel`` (relative, at least absolute) of a rounding boundary:
+    the near-plane and live tests, the eigenvalue radius, the opacity cut's
+    extents and the rect's four tile quotients (the composite's formulas in
+    float64)."""
+    from diff_gaussian_rasterization_tpu_torch.camera import Camera
+    from diff_gaussian_rasterization_tpu_torch.ops import projection
+    t = {k: torch.tensor(v) for k, v in leaves.items()}
+    c = Camera(viewmatrix=torch.tensor(view), **cam)
+    v = c.viewmatrix
+    z = t["means3D"] @ v[:3, 2] + v[3, 2]
+    vis = z > cfg.near
+    cov3 = projection.compute_cov3d(t["scales"], t["rotations"], 1.0,
+                                    cfg.normalize_quaternions)
+    a, b, cc = projection.compute_cov2d(
+        t["means3D"], cov3, v, c.focal_x, c.focal_y, c.tanfovx, c.tanfovy,
+        cfg, valid=vis).unbind(1)
+    det = a * cc - b * b
+    mid = 0.5 * (a + cc)
+    lam = mid + torch.sqrt(torch.clamp_min(mid * mid - det, cfg.eig_clamp))
+    close = lambda x, to: (x - to).abs() <= rel * torch.clamp_min(
+        x.abs(), 1.0)
+    on_int = lambda x: close(x, torch.round(x))
+    out = close(z, torch.full_like(z, cfg.near)) | on_int(
+        cfg.radius_sigma * torch.sqrt(lam))
+    radius = torch.ceil(cfg.radius_sigma * torch.sqrt(lam))
+    rx = ry = radius
+    if cfg.opacity_cull:
+        ratio = t["opacities"].reshape(-1) / cfg.alpha_min
+        cut = torch.clamp_max(torch.sqrt(2.0 * torch.log(
+            torch.clamp_min(ratio, 1.0))), cfg.radius_sigma)
+        ex = cut * torch.sqrt(torch.clamp_min(a, 0.0)) + 1e-3
+        ey = cut * torch.sqrt(torch.clamp_min(cc, 0.0)) + 1e-3
+        out |= close(ratio, torch.ones_like(ratio)) | on_int(ex) | on_int(ey)
+        rx, ry = torch.ceil(ex), torch.ceil(ey)
+    xy = projection.preprocess(t["means3D"], c, cfg, **{
+        k: x for k, x in t.items() if k != "means3D"}).xy
+    for s in (-1.0, 1.0):
+        out |= on_int((xy[:, 0] + s * rx) / cfg.tile_w)
+        out |= on_int((xy[:, 1] + s * ry) / cfg.tile_h)
+    return out
+
+
+@pytest.mark.parametrize("variant", ["light", "full"])
+@pytest.mark.parametrize("scene", PREP_SCENES)
+def test_preprocess_kernel_matches_float64(dev, scene, variant):
+    """The kernel pair against the composite in float64 on the CPU: each
+    output and each leaf's gradient (the view matrix's included) no
+    further off than twice the float32 composite's on the card, or than
+    2**-22 of the largest entry (one or two float32 ulps, where both are
+    at float32's resolution and their ratio is noise); the
+    integer footprint and the mask equal to the float64 composite's but
+    where a value lies within 1e-5 of a rounding boundary."""
+    leaves, view, cam, cfg, deg = prep_scene(scene, variant)
+    g = torch.Generator().manual_seed(5)
+    d_feat = torch.randn((leaves["means3D"].shape[0], 11), generator=g,
+                         dtype=torch.float64)
+    ref = prep_run(composite_op, leaves, view, cam, cfg, deg, d_feat,
+                   torch.float64, "cpu")
+    comp = prep_run(composite_op, leaves, view, cam, cfg, deg, d_feat,
+                    torch.float32, dev)
+    kern = prep_run(kernel_op, leaves, view, cam, cfg, deg, d_feat,
+                    torch.float32, dev)
+    floor = 2.0 ** -22
+    for name, cols in PREP_OUTPUTS.items():
+        ek = rel_err(kern[1][:, cols], ref[1][:, cols])
+        ec = rel_err(comp[1][:, cols], ref[1][:, cols])
+        print(f"{scene}/{variant} {name}: kernel {ek:.3g}, composite "
+              f"{ec:.3g}")
+        assert ek <= max(2.0 * ec, floor), (name, ek, ec)
+    for k in ref[2]:
+        ek, ec = rel_err(kern[2][k], ref[2][k]), rel_err(comp[2][k],
+                                                         ref[2][k])
+        print(f"{scene}/{variant} d {k}: kernel {ek:.3g}, composite {ec:.3g}")
+        assert ek <= max(2.0 * ec, floor), (k, ek, ec)
+        assert bool(torch.isfinite(kern[2][k]).all()), k
+    edge = near_boundary(leaves, view, cam, cfg)
+    ints = ("mask", "radius", "rect_min", "rect_max", "tiles_touched")
+    bad = torch.zeros_like(edge)
+    for f in ints:
+        a, b = getattr(kern[0], f).cpu(), getattr(ref[0], f)
+        diff = a != b
+        bad |= diff if diff.dim() == 1 else diff.any(1)
+    print(f"{scene}/{variant}: {int(edge.sum())} of {edge.shape[0]} "
+          f"Gaussians near a rounding boundary, {int(bad.sum())} integer "
+          f"footprints differ, {int((bad & ~edge).sum())} of them away "
+          f"from a boundary")
+    assert not bool((bad & ~edge).any())
+
+
+def test_preprocess_backward_bit_reproducible(dev):
+    """Two backward runs, the view matrix's gradient (a sum over P in
+    per-block partials) included, are bit-equal."""
+    leaves, view, cam, cfg, deg = prep_scene("replica_500k", "full")
+    d_feat = torch.randn((leaves["means3D"].shape[0], 11),
+                         generator=torch.Generator().manual_seed(6),
+                         dtype=torch.float64)
+    a = prep_run(kernel_op, leaves, view, cam, cfg, deg, d_feat,
+                 torch.float32, dev)
+    b = prep_run(kernel_op, leaves, view, cam, cfg, deg, d_feat,
+                 torch.float32, dev)
+    assert torch.equal(a[1], b[1])
+    for k in a[2]:
+        assert torch.equal(a[2][k], b[2][k]), k
+    assert float(a[2]["view"].abs().max()) > 0
+
+
+def test_preprocess_launches_once_a_render(dev):
+    """``preprocess_fwd`` once a render, ``preprocess_bwd`` once a
+    backward (with or without the view's gradient), once a binning, and
+    the dual render's primal through it too; a CUDA tensor the kernel does
+    not take raises."""
+    from diff_gaussian_rasterization_tpu_torch.ops.kernels import (
+        preprocess as kp)
+    from diff_gaussian_rasterization_tpu_torch.models import lie
+    means, kw, cam = small_scene(p=300, h=40, w=56, seed=3, sh_degree=1,
+                                 device=dev)
+    cfg = RasterConfig(tile_h=8, tile_w=8)
+    leaves = {k: kw[k].clone().requires_grad_(True)
+              for k in ("scales", "rotations", "opacities", "shs")}
+    view = cam.viewmatrix.clone().requires_grad_(True)
+    rest = {k: v for k, v in kw.items() if k not in leaves}
+    for track_off in (True, False):
+        kp.reset_launches()
+        out = ras.rasterize(means, cam.replace(viewmatrix=view), cfg,
+                            track_off=track_off, **leaves, **rest)
+        assert kp.launches == {"preprocess_fwd": 1, "preprocess_bwd": 0}
+        (out.color.sum() + out.depth.sum()).backward()
+        assert kp.launches == {"preprocess_fwd": 1, "preprocess_bwd": 1}
+        assert (view.grad is None) == track_off
+    kp.reset_launches()
+    binn = ras.bin_for_view(means, cam, cfg, **leaves, **rest)
+    tw = torch.func.jacfwd(lambda x: lie.apply_twist(cam.viewmatrix, x))(
+        torch.zeros(6, device=dev)).movedim(-1, 0)
+    ras.rasterize_with_pose_jvp(means, cam, cfg, tw, binn=binn,
+                                **{k: v.detach() for k, v in leaves.items()},
+                                **rest)
+    assert kp.launches == {"preprocess_fwd": 2, "preprocess_bwd": 0}
+    with pytest.raises(ValueError):
+        ras.rasterize(means.double(), cam, cfg, **{
+            k: v.detach().double() for k, v in leaves.items()}, **rest)
+
+
+def test_pose_jvp_tables_keep_the_composite_tangents(dev):
+    """``rasterize_with_pose_jvp``'s tangent table on the card is still the
+    composite's forward-mode derivative, bit for bit, and its primal table
+    (now the kernel's) is the composite's to float32 rounding."""
+    from diff_gaussian_rasterization_tpu_torch.models import lie
+    from diff_gaussian_rasterization_tpu_torch.ops import projection
+    from diff_gaussian_rasterization_tpu_torch.ops.kernels import (
+        preprocess as kp)
+    means, kw, cam = small_scene(p=300, h=40, w=56, seed=4, sh_degree=1,
+                                 device=dev)
+    prep_kw = {k: kw[k] for k in ("scales", "rotations", "opacities", "shs",
+                                  "sh_degree")}
+    for cfg in (RasterConfig(tile_h=8, tile_w=8),
+                RasterConfig(tile_h=8, tile_w=8).full_variant()):
+        full = bool(cfg.pose_cov2d_branch)
+        tw = torch.func.jacfwd(lambda x: lie.apply_twist(cam.viewmatrix, x))(
+            torch.full((6,), 1e-3, device=dev)).movedim(-1, 0)
+        with torch.no_grad():
+            prep, binn, table, tans, _ = ras.pose_jvp_tables(
+                means, cam, cfg, tw, None, kw["gt_depth"], **prep_kw)
+
+            def feats(vm):
+                pv = projection.preprocess(
+                    means, cam.replace(viewmatrix=vm), cfg, **prep_kw)
+                return (pv.xy, pv.depth) + ((pv.conic,) if full else ())
+
+            t = torch.func.vmap(lambda d: torch.func.jvp(
+                feats, (cam.viewmatrix,), (d,))[1])(tw)
+            want = torch.cat([t[0], t[1][..., None], *t[2:]], -1).movedim(
+                0, 1).reshape(means.shape[0], -1)[binn.gauss_id]
+            comp = kp.feature_table(projection.preprocess(
+                means, cam, cfg, **prep_kw))[binn.gauss_id]
+        assert torch.equal(tans, want)
+        torch.testing.assert_close(table, comp, rtol=1e-5, atol=1e-5)

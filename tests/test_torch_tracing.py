@@ -193,6 +193,19 @@ def test_track_frame_counters(ts):
     assert c["track.active"] == int(ts.model.active.sum())
 
 
+def test_track_frame_counts_the_tangents_slots(ts):
+    """A tracked frame preprocesses its slots in the frozen binning, in
+    each evaluation's render and in each evaluation's tangents (the
+    composite's forward mode): ``render.gaussians`` counts all three; the
+    kernel's ``render.prep_kernel`` is counted on the card only."""
+    with profiling.recording():
+        track(ts)
+    c = profiling.snapshot()["counters"]
+    assert c["render.gaussians"] == (1 + 2 * ts.tcfg.iters) * \
+        ts.model.capacity
+    assert "render.prep_kernel" not in c
+
+
 @pytest.mark.parametrize("done", [True, False])
 def test_stream_records_fold_and_reuse_events(done, ts, monkeypatch):
     """Stand-in CUDA events on the host clock: closed spans fold in
@@ -333,3 +346,27 @@ def test_recording_keeps_device_memory_flat(monkeypatch):
     assert over == 30
     # 120 instance values fill 15 pages of 8: each page is read and reused
     assert pages <= 4
+
+
+@pytest.mark.cuda
+def test_prep_kernel_counter_on_the_card():
+    """On the card the kernel pair preprocesses every slot of a map step's
+    renders (``render.prep_kernel`` = ``render.gaussians``), and fewer than
+    a tracked frame counts, whose tangents run the composite."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel runs only there")
+    profiling.reset()
+    ts = world(device="cuda")
+    with profiling.recording():
+        map_steps(ts, k=2)
+    c = profiling.snapshot()["counters"]
+    profiling.reset()
+    assert c["render.prep_kernel"] == c["render.gaussians"] == \
+        2 * ts.model.capacity
+    with profiling.recording():
+        track(ts)
+    c = profiling.snapshot()["counters"]
+    profiling.reset()
+    iters = ts.tcfg.iters
+    assert c["render.prep_kernel"] == (1 + iters) * ts.model.capacity
+    assert c["render.gaussians"] == (1 + 2 * iters) * ts.model.capacity
