@@ -216,9 +216,20 @@ OPS_PER_CONTRIB_BWD = 58
 # The dual forward adds, per contribution: the shared rate (a division
 # counted as 8, a compare, a subtraction) and gx, gy (6), ~16; and per
 # tangent dpow (4), dw (3), the running S (2), dcolor (6), ddepth (4) and
-# dweight (1), ~20, or ~29 with the full variant's conic terms.
+# dweight (1), ~20, or ~29 with the full variant's conic terms, ~35 with
+# the colour branch's three fused multiply-adds besides.
 OPS_PER_CONTRIB_JVP = 16
-OPS_PER_TANGENT = {3: 20, 6: 29}
+OPS_PER_TANGENT = {3: 20, 6: 29, 9: 35}
+# The SH bands 1-3 of the tracking frame's colour-branch variant, drawn a
+# Gaussian each with the replica-full-sh3 configuration's deviation.  That
+# configuration draws one set a surface of its room; the tracking frame is
+# a random cloud with no surfaces, where the colour branch stays near 1% of
+# the colour tangents at any draw.  So check_jvp_kernel shows, besides,
+# that the kernel's colour term stands well above the check's tolerance.
+SH_REST_STD = 0.25
+# ... by at least this factor: the colour term's largest part of the
+# colour tangents over the comparison's atol on that stream.
+COLOR_SEEN = 10.0
 # Tangent streams against the plain version: rtol and atol (plus COL_EPS
 # times the stream's largest value, below).
 JVP_RTOL, JVP_ATOL = 2e-4, 2e-5
@@ -853,15 +864,18 @@ def compare_tangents(tk, tp, td, tile_ok, tile_ok_d):
 
 
 def check_jvp_kernel(tag, table, tans, binn, gt_tiles, core_kw, full,
-                     check):
+                     check, color=False, color_seen=False):
     """``render_jvp`` against its plain version (and the plain version in
     float64) on one dual render's sorted tables, and its primal against
-    ``render_fwd`` on the same table.  Returns the largest error and the
-    kernel's outputs."""
+    ``render_fwd`` on the same table; with ``color_seen``, that the colour
+    term moves the colour tangents well above the comparison's tolerance
+    (a rotation about the camera centre has no colour term, so only a set
+    of directions with translations shows it).  Returns the largest error
+    and the kernel's outputs."""
     import torch
     from diff_gaussian_rasterization_tpu_torch.ops.kernels import render
     start, stop = binn.tile_start, binn.tile_stop
-    kw = dict(core_kw, full=full)
+    kw = dict(core_kw, full=full, color=color)
     out_k, tan_k = render.core_fwd_jvp(table, tans, start, stop, gt_tiles,
                                        **kw)
     fwd = render.core_fwd(table, start, stop, gt_tiles, **core_kw)
@@ -902,6 +916,20 @@ def check_jvp_kernel(tag, table, tans, binn, gt_tiles, core_kw, full,
     check(float(tan_k.median.abs().max()) == 0.0
           and float(tan_k.color.abs().max()) > 0,
           f"{tag}: median tangent zero, color tangents non-zero")
+    if color_seen:
+        # the colour term's part of the colour tangents: the kernel again
+        # with the colour columns zeroed
+        bare = tans.reshape(tans.shape[0], -1, 9).clone()
+        bare[..., 6:] = 0
+        _, tan_0 = render.core_fwd_jvp(table, bare.reshape(tans.shape),
+                                       start, stop, gt_tiles, **kw)
+        part = float((tan_k.color - tan_0.color)[tile_ok].abs().max())
+        atol = JVP_ATOL + COL_EPS * float(tan_p.color[tile_ok].abs().max())
+        log(f"[kernel] {tag}: the colour term's largest part of the colour "
+            f"tangents {part}, {part / atol:.1f}x the check's atol {atol}")
+        check(part > COLOR_SEEN * atol,
+              f"{tag}: the colour term stands {COLOR_SEEN}x above the "
+              "colour tangents' atol")
     return dict(out_k=out_k, err=max(err_p, err_t))
 
 
@@ -933,14 +961,18 @@ def twist_basis(view):
 
 
 def tracking_kernels(dev, check):
-    """Phase 2 for the tracking path: ``render_jvp`` (light and full)
-    against its plain version on the full-resolution dual render of the
-    tracking frame, at the identity pose with the record configuration's
-    frozen binning and the 6 twist tangents, and with K = 1, 2, 3, 4, 5, 8
-    and 10 of them; and the kernel's culling boxes against their mirror."""
+    """Phase 2 for the tracking path: ``render_jvp`` (light, full, and
+    full with the SH colour branch: the tracking frame's map given SH bands
+    1-3 of ``SH_REST_STD``, and its frame rendered from that map) against
+    its plain version on the full-resolution dual render of the tracking
+    frame, at the identity pose with the record configuration's frozen
+    binning and the 6 twist tangents, and with K = 1, 2, 3, 4, 5, 8 and 10
+    of them; and the kernel's culling boxes against their mirror."""
     import torch
+    from diff_gaussian_rasterization_tpu_torch.models.gaussians import (
+        GaussianModel)
     from diff_gaussian_rasterization_tpu_torch.models.slam import (
-        frozen_budget)
+        Frame, frozen_budget, render_model)
     from diff_gaussian_rasterization_tpu_torch.ops import rasterize as ras
     from diff_gaussian_rasterization_tpu_torch.ops.kernels import render
     from diff_gaussian_rasterization_tpu_torch.scenes import tracking_frame
@@ -959,28 +991,47 @@ def tracking_kernels(dev, check):
         f"with depth, budget {ts.cfg.max_instances}, frozen binning "
         f"{int(binn.num_rendered)} instances (budget "
         f"{binn.gauss_id.shape[0]}, overflow {bool(binn.overflow)})")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    m = ts.model
+    rest = SH_REST_STD * torch.randn((m.sh.shape[0], 15, 3), generator=gen,
+                                     device=dev)
+    model3 = GaussianModel(*(getattr(m, k).detach() for k in (
+        "means3D", "scales_log", "rotations", "opacities_logit")),
+        torch.cat([m.sh.detach(), rest], 1), m.active)
+    with torch.no_grad():
+        kwm3 = model3.raster_kwargs()
+        gt3 = render_model(model3, ts.camera, ts.cfg)
+    frame3 = Frame(gt3.color, gt3.depth[0])
     variants = {}
-    for variant, vcfg in (("light", ts.cfg), ("full", ts.cfg.full_variant())):
+    for variant, vcfg, model, frame in (
+            ("light", ts.cfg, m, ts.frame),
+            ("full", ts.cfg.full_variant(), m, ts.frame),
+            ("full_sh3", ts.cfg.full_variant(), model3, frame3)):
+        full = variant != "light"
+        vkw = kwm if model is m else kwm3
+        color = ras.color_branch(vcfg, **vkw)
         with torch.no_grad():
             _, _, table, tans, gt_tiles = ras.pose_jvp_tables(
-                means, ts.camera, vcfg, tw, None, ts.frame.depth, binn=binn,
-                **kwm)
+                means, ts.camera, vcfg, tw, None, frame.depth, binn=binn,
+                **vkw)
         res = check_jvp_kernel(f"tracking {variant}", table, tans, binn,
-                               gt_tiles, core_kw, variant == "full", check)
+                               gt_tiles, core_kw, full, check, color=color,
+                               color_seen=color)
         variants[variant] = dict(res, cfg=vcfg, table=table, tans=tans,
-                                 gt_tiles=gt_tiles)
+                                 gt_tiles=gt_tiles, color=color,
+                                 model=model, frame=frame)
         # other K on the same frame: tangent tables of subsets and repeats
         # of the twist directions (K = 8 and 10 take two launches, the
         # second of 2 and of 4 columns)
-        per_k = 6 if variant == "full" else 3
+        per_k = render.tangent_columns(full, color)
         by_k = tans.reshape(tans.shape[0], 6, per_k)
         for pick in ([5], [0, 1], [0, 1, 2], [0, 1, 2, 3], [0, 1, 2, 3, 4],
                      [0, 1, 2, 3, 4, 5, 0, 3],
                      [0, 1, 2, 3, 4, 5, 0, 1, 2, 3]):
             sub = by_k[:, pick].reshape(tans.shape[0], -1).contiguous()
             check_jvp_kernel(f"tracking {variant} K={len(pick)}", table, sub,
-                             binn, gt_tiles, core_kw, variant == "full",
-                             check)
+                             binn, gt_tiles, core_kw, full, check,
+                             color=color)
     # the kernel's own culling boxes on this frame's table against their
     # mirror, which the CPU tests hold to the blend's alpha
     table = variants["light"]["table"]
@@ -998,7 +1049,8 @@ def tracking_kernels(dev, check):
 
 def tracking_path(st, dev, check):
     """Phase 3 for the tracking path: ``track_frame`` at the record
-    configuration, light and full, with the launch counts of one tracked
+    configuration, light, full, and full on the SH-3 map of phase 2 with
+    its frame (the colour branch), with the launch counts of one tracked
     frame, the frozen binnings, the pose error and a bit-equal repeat; the
     dual render's primal against ``rasterize`` at the same binning; the
     reused binning against a fresh one at the binning pose; and the card
@@ -1017,15 +1069,16 @@ def tracking_path(st, dev, check):
     want = dict(render_fwd=0, tile_scatter_sum=n_dual, segment_sum=0,
                 render_bwd=0, segment_sum_rows=n_dual, render_jvp=n_dual)
     st["counts"], st["pose_err"] = {}, {}
-    for variant in ("light", "full"):
-        vcfg = st["variants"][variant]["cfg"]
+    for variant in ("light", "full", "full_sh3"):
+        v = st["variants"][variant]
+        vcfg, model, frame = v["cfg"], v["model"], v["frame"]
         binns = []
         render.reset_launches()
-        v1, c1, cs1 = track_frame(ts.model, ts.view0, ts.frame, vcfg,
-                                  ts.tcfg, ts.camera, binnings=binns)
+        v1, c1, cs1 = track_frame(model, ts.view0, frame, vcfg, ts.tcfg,
+                                  ts.camera, binnings=binns)
         torch.cuda.synchronize()
         counts, rows = dict(render.launches), dict(render.row_launches)
-        v2, _, _ = track_frame(ts.model, ts.view0, ts.frame, vcfg, ts.tcfg,
+        v2, _, _ = track_frame(model, ts.view0, frame, vcfg, ts.tcfg,
                                ts.camera)
         err_after = float((v1 - eye).abs().max())
         st["counts"][variant] = counts
@@ -1090,10 +1143,11 @@ def tracking_path(st, dev, check):
 
 
 def tracking_times(st, dev, card):
-    """Phase 4 for the tracking path: the ``render_jvp`` kernel (light and
-    full) with its plain version and bound, one dual render, ms per
-    tracked frame over 5 frames, and a profile of one tracked frame.
-    Returns the ``kernels`` line's two entries."""
+    """Phase 4 for the tracking path: the ``render_jvp`` kernel (light,
+    full and full with the colour branch) with its plain version and
+    bound, one dual render, ms per tracked frame over 5 frames, and a
+    profile of one tracked frame.  Returns the ``kernels`` line's three
+    entries."""
     import torch
     from diff_gaussian_rasterization_tpu_torch.models.slam import track_frame
     from diff_gaussian_rasterization_tpu_torch.ops import rasterize as ras
@@ -1106,45 +1160,49 @@ def tracking_times(st, dev, card):
                                   core_kw["height"], core_kw["width"],
                                   dev)[2]
     entries = []
-    for variant in ("light", "full"):
+    for variant in ("light", "full", "full_sh3"):
         v = st["variants"][variant]
-        full = variant == "full"
+        full, color = variant != "light", v["color"]
+        per_k = render.tangent_columns(full, color)
         table, tans, gt_tiles = v["table"], v["tans"], v["gt_tiles"]
-        k_t = tans.shape[1] // (6 if full else 3)
+        k_t = tans.shape[1] // per_k
         out_f = torch.empty((n_tiles, 9, q), device=dev)
         out_i = torch.empty((n_tiles, 3, q), dtype=torch.int32, device=dev)
         out_t = torch.empty((n_tiles, k_t, 6, q), device=dev)
         ms = time_ms(lambda: render.launch_render_jvp(
             table, tans, start, stop, gt_tiles, out_f, out_i, out_t,
-            full=full, **core_kw), iters=20)
+            full=full, color=color, **core_kw), iters=20)
         ms_plain = time_ms(lambda: render.core_fwd_jvp_reference(
-            table, tans, start, stop, gt_tiles, full=full, **core_kw),
-            iters=2, warmup=1)
+            table, tans, start, stop, gt_tiles, full=full, color=color,
+            **core_kw), iters=2, warmup=1)
         _, _, finfo = render_fwd_bound_ms(v["out_k"], start, stop, pixmask)
         n_seg = int((stop - start).sum())
         bound, by, binfo = render_jvp_bound_ms(
-            finfo["contributions"], n_seg, n_tiles, q, k_t, 6 if full else 3)
+            finfo["contributions"], n_seg, n_tiles, q, k_t, per_k)
         # the pairs the culled walk tests, against the pairs each pixel's
         # segment holds up to its termination and the contributions (the
         # bound's count)
         tested = torch.zeros(1, dtype=torch.int64, device=dev)
         render.launch_render_jvp(table, tans, start, stop, gt_tiles, out_f,
-                                 out_i, out_t, full=full, pairs=tested,
-                                 **core_kw)
-        log(f"[time] {card}: render_jvp ({variant}, K={k_t}) kernel "
-            f"{ms:.4f} ms (bound {bound:.4f} ms by {by}: "
+                                 out_i, out_t, full=full, color=color,
+                                 pairs=tested, **core_kw)
+        log(f"[time] {card}: render_jvp ({variant}, K={k_t}, "
+            f"PER_K={per_k}) kernel {ms:.4f} ms (bound {bound:.4f} ms by "
+            f"{by}: "
             f"{json.dumps(dict(finfo, **binfo))}), plain version "
             f"{ms_plain:.3f} ms; pairs tested {int(tested)} of "
             f"{finfo['pairs']} walked, for {finfo['contributions']} "
             "contributions")
         entries.append(dict(
-            name="render_jvp" if variant == "light" else "render_jvp_full",
+            name={"light": "render_jvp", "full": "render_jvp_full",
+                  "full_sh3": "render_jvp_full_sh3"}[variant],
             route="cuda",
             source="diff_gaussian_rasterization_tpu_torch/ops/kernels/csrc/"
                    "render_jvp.cu",
             replaces="diff_gaussian_rasterization_tpu/ops/kernels/"
                      "render_pallas.py:440",
-            launches=st["counts"][variant]["render_jvp"], max_abs_err=v["err"],
+            launches=st["counts"][variant]["render_jvp"],
+            max_abs_err=v["err"],
             ms=ms, plain_ms=ms_plain, bound_ms=bound, bound_by=by,
             library_ms=None))
 

@@ -284,7 +284,8 @@ def init_jvp_carry(shape, k: int, channels: int = 3, dtype=torch.float32,
 def blend_chunk_fwd_jvp(carry: JvpCarry, xy, conic, opacity, color, depth,
                         depth_med, tan_xy, tan_depth, valid, px, py,
                         base_index, cfg: RasterConfig, global_base=None,
-                        tan_depth_med=None, tan_conic=None) -> JvpCarry:
+                        tan_depth_med=None, tan_conic=None,
+                        tan_color=None) -> JvpCarry:
     """One chunk of the forward blend plus exact propagation of K pose
     tangents.
 
@@ -293,7 +294,9 @@ def blend_chunk_fwd_jvp(carry: JvpCarry, xy, conic, opacity, color, depth,
     [..., K, G, 2] and ``tan_depth`` [..., K, G] (the light variant's pose
     Jacobian); ``tan_conic`` [..., K, G, 3] (dA, dB, dC) also propagates
     the 2D-covariance branch, the full variant's, through
-    ``dpower -= 0.5 dx^2 dA + dx dy dB + 0.5 dy^2 dC``.  The median's
+    ``dpower -= 0.5 dx^2 dA + dx dy dB + 0.5 dy^2 dC``; ``tan_color``
+    [..., K, G, C] (the colours' own tangents, the SH colour branch) adds
+    ``tan_color w`` to the colour's tangent.  The median's
     tangent sums ``tan_depth_med`` [..., K, G] over the (frozen) crossing;
     None leaves it unchanged, as in the render path, where the median reads
     the pose-detached depth copy.
@@ -336,10 +339,13 @@ def blend_chunk_fwd_jvp(carry: JvpCarry, xy, conic, opacity, color, depth,
     else:
         median = carry.median + torch.einsum(
             "...kg,...gq->...kq", tan_depth_med, cross.to(w.dtype))
+    dcolor = carry.color + torch.einsum("...gc,...kgq->...kcq", color, dw)
+    if tan_color is not None:
+        dcolor = dcolor + torch.einsum("...kgc,...gq->...kcq", tan_color, w)
     return JvpCarry(
         primal=primal,
         s=s_tot[..., -1, :],
-        color=carry.color + torch.einsum("...gc,...kgq->...kcq", color, dw),
+        color=dcolor,
         depth=(carry.depth + torch.einsum("...g,...kgq->...kq", depth, dw)
                + torch.einsum("...kg,...gq->...kq", tan_depth, w)),
         weight=carry.weight + dw.sum(dim=-2),

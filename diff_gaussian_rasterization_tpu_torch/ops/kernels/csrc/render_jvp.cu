@@ -11,14 +11,16 @@
 // outputs: out_t[t, k, 6, q] = dcolor[3], ddepth, dweight, dt_final.  The
 // tangents enter through a sorted tangent table tan[cap, PER_K * K] read
 // by the same rows as the features: per direction dx, dy, ddepth of the
-// splat and, in the full variant (PER_K = 6), dA, dB, dC of its conic.
+// splat, in the full variant (PER_K = 6) dA, dB, dC of its conic, and with
+// the SH colour branch (PER_K = 9) dr, dg, db of its colour after them.
 // Per contributing (instance, pixel) pair, with the selection masks frozen:
 //   gx = A dx + B dy,  gy = C dy + B dx           (shared by all tangents)
 //   dpow_k = -(gx tx_k + gy ty_k)
 //            [- (0.5 tA_k dx + tB_k dy) dx - 0.5 tC_k dy^2]
 //   rate = alpha / (1 - alpha), 0 where alpha is capped
 //   dw_k = w ((capped ? 0 : dpow_k) - S_k),  then S_k += rate dpow_k
-//   dcolor_k += color dw_k, ddepth_k += depth dw_k + tdepth_k w,
+//   dcolor_k += color dw_k [+ tcolor_k w], ddepth_k += depth dw_k
+//   + tdepth_k w,
 //   dweight_k += dw_k,  and at the end dt_final_k = -T_final S_k.
 // The median's tangent is structurally zero (the median reads the
 // pose-detached depth copy); the kernel does not write it.
@@ -61,6 +63,10 @@
 // - Occupancy.  __launch_bounds__(256, 3): three resident blocks an SM
 //   (24 warps) at 80 registers a thread; the -Xptxas -v report shows
 //   registers and spills.
+// - The colour branch (PER_K = 9) adds three fused multiply-adds a tangent
+//   and three floats a tangent's row; it runs one more 16-byte read a
+//   tangent, and its two staged rounds take 86 KB of shared memory (62 KB
+//   at PER_K = 6), so two blocks, not three, fit an SM.
 // - Any K.  Templated on K = 1..6 and PER_K; a table with more tangents is
 //   rendered in groups of at most kMaxK columns, one launch per group
 //   (k0, k_total): each launch walks the same pairs, and only the first
@@ -297,16 +303,24 @@ render_jvp_kernel(const float* __restrict__ feat,
         for (int k = 0; k < K; ++k, tk += kPad / 4) {
           const float4 ta = tk[0];  // dx, dy, ddepth, [dA]
           float ndp = __fmaf_rn(gx, ta.x, gy * ta.y);
-          if constexpr (PER_K == 6) {
-            const float4 tb = tk[1];  // dB, dC
+          if constexpr (PER_K >= 6) {
+            const float4 tb = tk[1];  // dB, dC, [dr, dg]
             ndp = __fmaf_rn(tb.y, hyy,
                             __fmaf_rn(tb.x, hxy, __fmaf_rn(ta.w, hxx, ndp)));
           }
           const float ndw = __fmaf_rn(cw, ndp, w * S[k]);
           S[k] = __fmaf_rn(nrate, ndp, S[k]);
-          tc0[k] = __fmaf_rn(-fb.z, ndw, tc0[k]);
-          tc1[k] = __fmaf_rn(-fb.w, ndw, tc1[k]);
-          tc2[k] = __fmaf_rn(-fc.x, ndw, tc2[k]);
+          if constexpr (PER_K == 9) {
+            // the colour's own tangent: dcolor += tcolor w
+            const float4 tb = tk[1], tc = tk[2];  // dr, dg in tb; db in tc
+            tc0[k] = __fmaf_rn(tb.z, w, __fmaf_rn(-fb.z, ndw, tc0[k]));
+            tc1[k] = __fmaf_rn(tb.w, w, __fmaf_rn(-fb.w, ndw, tc1[k]));
+            tc2[k] = __fmaf_rn(tc.x, w, __fmaf_rn(-fc.x, ndw, tc2[k]));
+          } else {
+            tc0[k] = __fmaf_rn(-fb.z, ndw, tc0[k]);
+            tc1[k] = __fmaf_rn(-fb.w, ndw, tc1[k]);
+            tc2[k] = __fmaf_rn(-fc.x, ndw, tc2[k]);
+          }
           tdep[k] = __fmaf_rn(ta.z, w, __fmaf_rn(-d, ndw, tdep[k]));
           twgt[k] -= ndw;
         }
@@ -436,6 +450,7 @@ extern "C" int render_jvp(const float* feat, const float* tan,
                  Group{per_k * k_total, k0, k_total, write_primal}, pairs};
   if (per_k == 3) return static_cast<int>(launch_k<3>(k, a));
   if (per_k == 6) return static_cast<int>(launch_k<6>(k, a));
+  if (per_k == 9) return static_cast<int>(launch_k<9>(k, a));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -26,7 +26,8 @@ does.
 
 ``core_fwd_jvp`` is the dual forward: the forward's outputs plus K pose
 tangents per pixel (:class:`PoseTangents`), from a sorted tangent table
-``[I, per_k * K]`` gathered by the same rows as the features.  It is the
+``[I, per_k * K]`` gathered by the same rows as the features
+(:func:`tangent_columns`: 3, 6 or 9 columns a tangent).  It is the
 port of ``render_pallas._jvp_kernel``: the kernel ``csrc/render_jvp.cu`` on
 CUDA tensors (its primal outputs bit-equal to ``render_fwd``'s), and
 ``core_fwd_jvp_reference`` (the counterpart of
@@ -599,8 +600,17 @@ def core_bwd(table, tile_start, tile_stop, gt_tiles, totals, cots, *,
 # --------------------------------------------------------------------------
 
 
-def _tangent_count(tans, full: bool) -> int:
-    per_k = 6 if full else 3
+def tangent_columns(full: bool, color: bool = False) -> int:
+    """The columns of one tangent in the sorted tangent table: dx, dy,
+    ddepth of the splat; dA, dB, dC of its conic when ``full`` (the 2D
+    covariance branch); and dr, dg, db of its colour when ``color`` (the SH
+    colour branch), after conic columns that are zeros without ``full``.
+    So 3, 6 or 9."""
+    return 9 if color else 6 if full else 3
+
+
+def _tangent_count(tans, full: bool, color: bool = False) -> int:
+    per_k = tangent_columns(full, color)
     if tans.dim() != 2 or tans.shape[1] % per_k or tans.shape[1] == 0:
         raise ValueError(f"tans must be [I, {per_k} * K], got "
                          f"{tuple(tans.shape)}")
@@ -609,17 +619,18 @@ def _tangent_count(tans, full: bool) -> int:
 
 def core_fwd_jvp_reference(table, tans, tile_start, tile_stop, gt_tiles, *,
                            cfg: RasterConfig, tiles_x: int, height: int,
-                           width: int, full: bool = False, tile0: int = 0):
+                           width: int, full: bool = False,
+                           color: bool = False, tile0: int = 0):
     """Plain PyTorch dual render core: :func:`core_fwd_reference`'s tile
     batches, chunks and termination, each chunk through
     :func:`blend.blend_chunk_fwd_jvp`.  ``tans`` [I, per_k * K] holds per
-    tangent k the columns dx, dy, ddepth and, when ``full``, dA, dB, dC.
-    Returns (CoreOutputs, PoseTangents)."""
+    tangent k the columns of :func:`tangent_columns` (``full``,
+    ``color``).  Returns (CoreOutputs, PoseTangents)."""
     dev = table.device
     n_inst = table.shape[0]
     t_all = tile_start.shape[0]
-    k_t = _tangent_count(tans, full)
-    per_k = 6 if full else 3
+    k_t = _tangent_count(tans, full, color)
+    per_k = tangent_columns(full, color)
     g = max(1, min(cfg.chunk, n_inst))
     px_all, py_all, mask_all = pixel_coords(t_all, tiles_x, cfg.tile_h,
                                             cfg.tile_w, height, width, dev,
@@ -648,7 +659,8 @@ def core_fwd_jvp_reference(table, tans, tile_start, tile_stop, gt_tiles, *,
                 rows[..., 6:9], rows[..., 9], rows[..., 10], trows[..., 0:2],
                 trows[..., 2], v, px, py, k0, cfg,
                 global_base=(start + k0).to(torch.int32),
-                tan_conic=trows[..., 3:6] if full else None)
+                tan_conic=trows[..., 3:6] if per_k >= 6 else None,
+                tan_color=trows[..., 6:9] if color else None)
         gt = gt_tiles[sl]
         pc = carry.primal
         outs.append((pc.color, pc.depth, pc.weight, pc.median,
@@ -786,7 +798,7 @@ def cull_misses(table, tile_start, tile_stop, *, cfg: RasterConfig,
 def launch_render_jvp(table, tans, tile_start, tile_stop, gt_tiles, out_f,
                       out_i, out_t, *, cfg: RasterConfig, tiles_x: int,
                       height: int, width: int, full: bool = False,
-                      pairs=None, tile0: int = 0):
+                      color: bool = False, pairs=None, tile0: int = 0):
     """The ``render_jvp`` kernel into preallocated ``out_f`` [T, 9, Q],
     ``out_i`` [T, 3, Q] (both as ``render_fwd`` writes them) and ``out_t``
     [T, K, 6, Q] (inputs checked by :func:`core_fwd_jvp`): one launch per
@@ -794,7 +806,7 @@ def launch_render_jvp(table, tans, tile_start, tile_stop, gt_tiles, out_f,
     primal.  ``pairs``, a CUDA int64 [1] tensor, if given, gets the
     (instance, pixel) pairs the kernel tested added to it."""
     from ._build import load
-    per_k = 6 if full else 3
+    per_k = tangent_columns(full, color)
     k_total = tans.shape[1] // per_k
     pairs_ptr = None if pairs is None else pairs.data_ptr()
     with torch.cuda.device(table.device):
@@ -816,21 +828,22 @@ def launch_render_jvp(table, tans, tile_start, tile_stop, gt_tiles, out_f,
 
 def core_fwd_jvp(table, tans, tile_start, tile_stop, gt_tiles, *,
                  cfg: RasterConfig, tiles_x: int, height: int, width: int,
-                 full: bool = False, tile0: int = 0):
+                 full: bool = False, color: bool = False, tile0: int = 0):
     """The dual render core, (CoreOutputs, PoseTangents): the ``render_jvp``
     kernel on CUDA tensors, :func:`core_fwd_jvp_reference` on CPU tensors.
-    ``tans`` is the sorted tangent table [I, per_k * K] (per_k 3, or 6 when
-    ``full``), gathered by the same rows as ``table``; ``tile0`` as in
+    ``tans`` is the sorted tangent table [I, per_k * K] (per_k of
+    :func:`tangent_columns`: 3, 6 when ``full``, 9 with ``color``),
+    gathered by the same rows as ``table``; ``tile0`` as in
     :func:`core_fwd`."""
     blend.check_direct_for_jvp(cfg)
     kw = dict(cfg=cfg, tiles_x=tiles_x, height=height, width=width,
-              full=full, tile0=tile0)
+              full=full, color=color, tile0=tile0)
     if table.device.type == "cpu":
         return core_fwd_jvp_reference(table, tans, tile_start, tile_stop,
                                       gt_tiles, **kw)
     _check_core_inputs(table, tile_start, tile_stop, gt_tiles, cfg)
     _check_cuda(tans, torch.float32, "tans")
-    k_t = _tangent_count(tans, full)
+    k_t = _tangent_count(tans, full, color)
     if tans.shape[0] != table.shape[0] or tans.device != table.device:
         raise ValueError("tans must have one row per row of table, on its "
                          "device")

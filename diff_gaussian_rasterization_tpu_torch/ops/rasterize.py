@@ -36,8 +36,9 @@ poses reuse it (``binn=``).
 Each stage runs inside a span of ``utils.profiling`` (``render``,
 ``render.jvp``, ``render.preprocess``, ``render.binning``,
 ``render.tangents``, ``render.core_fwd``/``_bwd``/``_jvp``,
-``render.assemble``) and a render counts its instances and slots; both
-are off, one check each, unless tracing is on.
+``render.assemble``) and a render counts its instances and slots (a dual
+render also its colour tangents and the floats of its tangent table);
+both are off, one check each, unless tracing is on.
 
 With ``mesh=`` (a ``torch.distributed`` DeviceMesh) both renders shard the
 tile grid over ``tile_axis`` (``parallel/sharded.py``): every rank calls
@@ -61,7 +62,7 @@ from . import blend
 from .binning import Binned, bin_gaussians, default_max_instances
 from .kernels.preprocess import preprocess_table
 from .kernels.render import (FEAT, CoreOutputs, core_bwd, core_fwd,
-                             core_fwd_jvp)
+                             core_fwd_jvp, tangent_columns)
 from .kernels.segment_sum import segment_sum_rows
 from .oracle import RenderOutputs
 from .projection import preprocess
@@ -392,10 +393,12 @@ def _shard_binned(means3D, camera: Camera, cfg: RasterConfig, mesh,
 class PoseJvpOutputs(NamedTuple):
     """A render and K exact pose-directional derivatives of its images.
 
-    Derivatives flow through the splat centers and depths (and, with
-    ``cfg.pose_cov2d_branch``, the 2D covariances); the binning and the
-    termination and median selections are frozen, and colors carry no
-    pose term.
+    Derivatives flow through the splat centers and depths, with
+    ``cfg.pose_cov2d_branch`` through the 2D covariances, and with
+    ``cfg.pose_sh_branch`` through the colors that SH of degree 1 or more
+    give (their view direction from the camera center; precomputed colors
+    and degree 0 carry no pose term).  The binning and the termination and
+    median selections are frozen.
     """
 
     out: RenderOutputs
@@ -405,25 +408,43 @@ class PoseJvpOutputs(NamedTuple):
     depth_median: torch.Tensor  # [K, H, W], zeros (pose-detached depth)
 
 
+def color_branch(cfg: RasterConfig, shs=None, sh_degree: int = 0,
+                 colors_precomp=None, **_unused) -> bool:
+    """Whether the dual render carries the SH colour branch: with
+    ``cfg.pose_sh_branch``, colors from SH of degree 1 or more."""
+    return bool(cfg.pose_sh_branch and colors_precomp is None
+                and shs is not None and sh_degree >= 1)
+
+
 def pose_jvp_tables(means3D, camera: Camera, cfg: RasterConfig,
                     view_tangents, max_instances, gt_depth, binn=None,
                     **prep_kw):
     """The stages of :func:`rasterize_with_pose_jvp` before its render
     core: ``(prep, binn, table, tans, gt_tiles)`` with the sorted feature
-    table [I, 11] and the sorted tangent table [I, per_k * K] (per tangent
-    dx, dy, ddepth and, with ``cfg.pose_cov2d_branch``, dA, dB, dC), both
-    from one row gather.  The primal table comes from the preprocess kernel
-    pair (:func:`prepare`); the tangents from the composite
-    ``projection.preprocess`` on any device, since the kernel pair's
-    ``torch.autograd.Function`` has no forward-mode rule."""
+    table [I, 11] and the sorted tangent table [I, per_k * K], both from
+    one row gather.  Per tangent the table holds dx, dy, ddepth; then dA,
+    dB, dC with ``cfg.pose_cov2d_branch``; then dr, dg, db with the colour
+    branch (:func:`color_branch`), after conic columns that are zeros
+    without ``pose_cov2d_branch`` (``render.tangent_columns``).  The
+    primal table comes from the preprocess kernel pair (:func:`prepare`);
+    the tangents from the composite ``projection.preprocess`` on any
+    device, since the kernel pair's ``torch.autograd.Function`` has no
+    forward-mode rule.
+
+    Tracing on, it counts the Gaussians x directions given a colour
+    tangent (``render.color_tangents``) and the floats of the sorted
+    tangent table (``render.tangent_floats``)."""
     full = bool(cfg.pose_cov2d_branch)
+    color = color_branch(cfg, **prep_kw)
     p = means3D.shape[0]
+    k_t = view_tangents.shape[0]
 
     def feats_of_view(vm):
         # the composite, by name: the kernel pair has no forward-mode rule
         pv = preprocess(means3D, camera.replace(viewmatrix=vm), cfg,
                         **prep_kw)
-        return (pv.xy, pv.depth) + ((pv.conic,) if full else ())
+        return (pv.xy, pv.depth) + ((pv.conic,) if full or color else ()) \
+            + ((pv.color,) if color else ())
 
     view = camera.viewmatrix
     if prof.tracing():
@@ -440,6 +461,11 @@ def pose_jvp_tables(means3D, camera: Camera, cfg: RasterConfig,
     prep, binn, feat, gt_tiles = prepare(means3D, camera, cfg, max_instances,
                                          gt_depth, binn=binn, **prep_kw)
     rows = torch.cat([feat, tan_feat], 1)[binn.gauss_id]
+    if prof.tracing():
+        prof.count("render.tangent_floats",
+                   rows.shape[0] * tangent_columns(full, color) * k_t)
+        if color:
+            prof.count("render.color_tangents", p * k_t)
     return (prep, binn, rows[:, :FEAT].contiguous(),
             rows[:, FEAT:].contiguous(), gt_tiles)
 
@@ -456,9 +482,11 @@ def rasterize_with_pose_jvp(means3D, camera: Camera, cfg: RasterConfig,
 
     ``view_tangents`` [K, 4, 4] are directions in view-matrix space, e.g.
     the twist basis ``jacfwd(lambda x: lie.apply_twist(view, x))(xi)``
-    moved to the front.  The per-Gaussian tangents of (xy, depth) and,
-    with ``cfg.pose_cov2d_branch`` (the full variant), of the conic come
-    from one batched forward-mode pass over the composite preprocess
+    moved to the front.  The per-Gaussian tangents of (xy, depth), with
+    ``cfg.pose_cov2d_branch`` of the conic, and with ``cfg.pose_sh_branch``
+    and SH of degree 1 or more of the colour (the full variant carries
+    both) come from one batched forward-mode pass over the composite
+    preprocess
     (``torch.func.vmap`` of ``torch.func.jvp`` of ``projection.preprocess``,
     on any device: the kernel pair that computes the primal has no
     forward-mode rule); the preprocess's detached
@@ -468,7 +496,8 @@ def rasterize_with_pose_jvp(means3D, camera: Camera, cfg: RasterConfig,
     nothing here records a reverse-mode graph.  ``binn`` reuses a binning
     as in :func:`rasterize`.  ``mesh`` shards the tile grid over
     ``tile_axis`` as :func:`rasterize` does (the light variant only, as in
-    the JAX package), bit-equal to the unsharded render.
+    the JAX package: no conic or colour tangents), bit-equal to the
+    unsharded render.
 
     The tangents differentiate the direct form of the splat exponent:
     ``cfg.splat_basis_power`` raises ``ValueError`` ("pose-jvp requires the
@@ -476,25 +505,26 @@ def rasterize_with_pose_jvp(means3D, camera: Camera, cfg: RasterConfig,
     """
     blend.check_direct_for_jvp(cfg)
     check_mesh(mesh)
-    if cfg.pose_cov2d_branch and mesh is not None:
-        raise ValueError(
-            "the full variant's pose tangents (pose_cov2d_branch) run on "
-            "one device only; the tile-sharded dual render carries the "
-            "light variant's")
-    h, w = camera.height, camera.width
-    bg, gt_depth = _defaults(means3D, h, w, bg, gt_depth)
-    full = bool(cfg.pose_cov2d_branch)
     prep_kw = dict(opacities=opacities, scales=scales, rotations=rotations,
                    cov3D_precomp=cov3D_precomp, shs=shs, sh_degree=sh_degree,
                    colors_precomp=colors_precomp,
                    scale_modifier=scale_modifier)
+    full = bool(cfg.pose_cov2d_branch)
+    color = color_branch(cfg, **prep_kw)
+    if (full or color) and mesh is not None:
+        raise ValueError(
+            "the full variant's pose tangents (pose_cov2d_branch, "
+            "pose_sh_branch with SH colors) run on one device only; the "
+            "tile-sharded dual render carries the light variant's")
+    h, w = camera.height, camera.width
+    bg, gt_depth = _defaults(means3D, h, w, bg, gt_depth)
     with torch.no_grad(), prof.span("render.jvp"):
         prep, binn, table, tans, gt_tiles = pose_jvp_tables(
             means3D, camera, cfg, view_tangents, max_instances, gt_depth,
             binn=binn, **prep_kw)
         tiles_x, _ = grid_dims(h, w, cfg.tile_h, cfg.tile_w)
         core_kw = dict(cfg=cfg, tiles_x=tiles_x, height=h, width=w,
-                       full=full)
+                       full=full, color=color)
         with prof.span("render.core_jvp"):
             if mesh is None:
                 out, tano = core_fwd_jvp(table, tans, binn.tile_start,

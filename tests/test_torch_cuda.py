@@ -496,14 +496,16 @@ def test_api_bit_equal_to_rasterize(dev, alpha_grad):
     assert a["means2D"].grad[:, :2].any()
 
 
-def jvp_inputs(tile, k_t, full, device, seed=0):
+def jvp_inputs(tile, k_t, full, device, seed=0, color=False):
     """A small scene's sorted table and binning, and a seeded tangent
-    table [I, per_k * K] (the same rows for the card and the CPU)."""
+    table [I, per_k * K] (the same rows for the card and the CPU; per_k 9
+    with the colour columns)."""
     args, ckw = core_inputs(tile, device=device)
-    per_k = 6 if full else 3
+    per_k = render.tangent_columns(full, color)
     g = torch.Generator().manual_seed(seed)
     tans = torch.randn(args[0].shape[0], per_k * k_t, generator=g)
-    return args, tans.to(device), dict(ckw, full=full)
+    ckw = dict(ckw, full=full, color=True) if color else dict(ckw, full=full)
+    return args, tans.to(device), ckw
 
 
 def assert_tangents_close(k, p, fwd_k, fwd_p, rtol=2e-4):
@@ -518,8 +520,8 @@ def assert_tangents_close(k, p, fwd_k, fwd_p, rtol=2e-4):
     assert float(k.median.abs().max()) == 0.0
 
 
-def check_render_jvp(dev, tile, k_t, full):
-    args, tans, ckw = jvp_inputs(tile, k_t, full, dev)
+def check_render_jvp(dev, tile, k_t, full, color=False):
+    args, tans, ckw = jvp_inputs(tile, k_t, full, dev, color=color)
     before = render.launches["render_jvp"]
     out, tan = render.core_fwd_jvp(args[0], tans, *args[1:], **ckw)
     torch.cuda.synchronize()
@@ -534,7 +536,7 @@ def check_render_jvp(dev, tile, k_t, full):
     assert float(tan.color.abs().max()) > 0
     # the primal is render_fwd's, bit for bit
     fwd = render.core_fwd(*args, **{k: v for k, v in ckw.items()
-                                    if k != "full"})
+                                    if k not in ("full", "color")})
     for f in out._fields:
         assert torch.equal(getattr(out, f), getattr(fwd, f)), f
     again = render.core_fwd_jvp(args[0], tans, *args[1:], **ckw)
@@ -547,6 +549,17 @@ def check_render_jvp(dev, tile, k_t, full):
 @pytest.mark.parametrize("tile", [(8, 16), (32, 32)])
 def test_render_jvp_matches_plain(dev, tile, k_t, full):
     check_render_jvp(dev, tile, k_t, full)
+
+
+@pytest.mark.parametrize("full", [True, False])
+@pytest.mark.parametrize("k_t", [1, 3, 6, 8])
+@pytest.mark.parametrize("tile", [(8, 16), (32, 32)])
+def test_render_jvp_colour_matches_plain(dev, tile, k_t, full):
+    """The colour branch's instantiation (PER_K = 9: the conic's columns,
+    then dr, dg, db) against the plain core, with and without
+    ``full`` (the conic columns are taken either way), in one launch and
+    in two (K = 8)."""
+    check_render_jvp(dev, tile, k_t, full, color=True)
 
 
 @pytest.mark.parametrize("full", [False, True])
@@ -1151,7 +1164,9 @@ def test_preprocess_launches_once_a_render(dev):
 def test_pose_jvp_tables_keep_the_composite_tangents(dev):
     """``rasterize_with_pose_jvp``'s tangent table on the card is still the
     composite's forward-mode derivative, bit for bit, and its primal table
-    (now the kernel's) is the composite's to float32 rounding."""
+    (now the kernel's) is the composite's to float32 rounding.  At SH 1
+    the full variant carries the colour branch: per tangent the conic's
+    columns and then the colour's (9 columns)."""
     from diff_gaussian_rasterization_tpu_torch.models import lie
     from diff_gaussian_rasterization_tpu_torch.ops import projection
     from diff_gaussian_rasterization_tpu_torch.ops.kernels import (
@@ -1163,6 +1178,8 @@ def test_pose_jvp_tables_keep_the_composite_tangents(dev):
     for cfg in (RasterConfig(tile_h=8, tile_w=8),
                 RasterConfig(tile_h=8, tile_w=8).full_variant()):
         full = bool(cfg.pose_cov2d_branch)
+        color = ras.color_branch(cfg, **prep_kw)
+        assert color == full
         tw = torch.func.jacfwd(lambda x: lie.apply_twist(cam.viewmatrix, x))(
             torch.full((6,), 1e-3, device=dev)).movedim(-1, 0)
         with torch.no_grad():
@@ -1172,7 +1189,8 @@ def test_pose_jvp_tables_keep_the_composite_tangents(dev):
             def feats(vm):
                 pv = projection.preprocess(
                     means, cam.replace(viewmatrix=vm), cfg, **prep_kw)
-                return (pv.xy, pv.depth) + ((pv.conic,) if full else ())
+                return (pv.xy, pv.depth) + ((pv.conic,) if full else ()) \
+                    + ((pv.color,) if color else ())
 
             t = torch.func.vmap(lambda d: torch.func.jvp(
                 feats, (cam.viewmatrix,), (d,))[1])(tw)
@@ -1180,5 +1198,6 @@ def test_pose_jvp_tables_keep_the_composite_tangents(dev):
                 0, 1).reshape(means.shape[0], -1)[binn.gauss_id]
             comp = kp.feature_table(projection.preprocess(
                 means, cam, cfg, **prep_kw))[binn.gauss_id]
+        assert tans.shape[1] == 6 * (9 if color else 3)
         assert torch.equal(tans, want)
         torch.testing.assert_close(table, comp, rtol=1e-5, atol=1e-5)
