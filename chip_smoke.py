@@ -168,7 +168,14 @@ the tracking benchmark's frame (``bench_tracking.py``: 100,000 Gaussians,
    the integer footprint, the gradients of a map step's leaves and of the
    view), its device times beside its bounds, the plain versions' and the
    composite's autograd backward's, and its launches in a 4-keyframe map
-   step and a tracked frame (phase 5 prints them a SLAM frame).
+   step and a tracked frame (phase 5 prints them a SLAM frame);
+12. the pose tangents' kernel (``preprocess_tangents``) at the 500k room
+   and the tum cells' 27k room, K = 6, light, full and SH-3 colour:
+   against the composite's forward mode in float64 (each column within
+   twice the float32 composite's error), bit-equal repeats, its device
+   times beside its byte bound and the composite pass it replaces, in
+   turns, its ``ptxas`` lines, and one launch a dual render of the record
+   tracked frame with ``render.tangent_kernel`` = K x its Gaussians.
 
 Prints the card's name and power limit, a ``kernels`` JSON line, a
 ``slam`` JSON line, a ``mesh`` JSON line, a ``drivers`` JSON line, a
@@ -3232,17 +3239,197 @@ def preprocess_phase(dev, check, card):
     track_launches = dict(kp.launches)
     log(f"[prep] launches: a 4-keyframe map step at 500k {map_launches}; a "
         f"tracked frame (record configuration) {track_launches}")
-    check(map_launches == {"preprocess_fwd": k, "preprocess_bwd": k},
+    check(map_launches == {"preprocess_fwd": k, "preprocess_bwd": k,
+                           "preprocess_tangents": 0},
           "preprocess: one forward and one backward launch a keyframe of a "
           "map step")
     check(track_launches["preprocess_fwd"] > 0
+          and track_launches["preprocess_tangents"] > 0
           and track_launches["preprocess_bwd"] == 0,
-          "preprocess: a tracked frame launches the forward, no backward")
+          "preprocess: a tracked frame launches the forward and the "
+          "tangents, no backward")
     return dict(name="preprocess", route="cuda",
                 source="diff_gaussian_rasterization_tpu_torch/ops/kernels/"
                        "csrc/preprocess.cu", replaces=None,
                 sizes=rows, launches_map_step=map_launches,
                 launches_tracked_frame=track_launches)
+
+
+# The tangent phase's scenes: the mapping cell's 500k room at the Replica
+# camera and the tum cells' 27k room (wall resolution 56) at the TUM
+# camera (fx 517.3, fy 516.5, 640x480).
+TANGENT_SCENES = (("500k", 240, (1.0, 680 / 1200, 680, 1200)),
+                  ("27k", 56, (640 / (2 * 517.3), 480 / (2 * 516.5), 480,
+                               640)))
+
+
+def tangent_bytes(p, k_t, per_k, cov, sh_coeffs):
+    """The bytes ``preprocess_tangents`` must move: the means, with the
+    conic the scales and rotations, with the colour the SH coefficients
+    read, and per_k x K floats written, a Gaussian."""
+    floats_in = 3 + (7 if cov else 0) + 3 * sh_coeffs
+    return 4 * p * (floats_in + per_k * k_t)
+
+
+def tangent_phase(dev, check, card, reg_lines):
+    """12. The pose tangents' kernel (``preprocess_tangents``) at the
+    mapping cell's 500k room and the tum cells' 27k room, K = 6, in its
+    light, full (conic) and SH-3 colour instantiations: against the
+    composite's forward mode in float64 on the card, each column's error
+    over its quantity's largest entry no larger than twice the float32
+    composite's (or 2**-22); its device time (``queued_ms``) beside its
+    byte bound and the composite pass it replaces (``torch.func.vmap`` of
+    ``torch.func.jvp``, ``device_ms``), in turns; its ``ptxas`` lines; and
+    on the record tracking frame one launch a dual render and
+    ``render.tangent_kernel`` = K x the tangents' Gaussians."""
+    import torch
+    from diff_gaussian_rasterization_tpu_torch.camera import Camera
+    from diff_gaussian_rasterization_tpu_torch.config import RasterConfig
+    from diff_gaussian_rasterization_tpu_torch.io import synthetic
+    from diff_gaussian_rasterization_tpu_torch.models.slam import track_frame
+    from diff_gaussian_rasterization_tpu_torch.ops import projection
+    from diff_gaussian_rasterization_tpu_torch.ops import rasterize as ras
+    from diff_gaussian_rasterization_tpu_torch.ops.kernels import (
+        preprocess as kp)
+    from diff_gaussian_rasterization_tpu_torch.ops.kernels import render
+    from diff_gaussian_rasterization_tpu_torch.scenes import tracking_frame
+    from diff_gaussian_rasterization_tpu_torch.utils import profiling
+
+    def composite(means, cam, cfg, tw, kw):
+        full = bool(cfg.pose_cov2d_branch)
+        color = ras.color_branch(cfg, **kw)
+
+        def feats(vm):
+            pv = projection.preprocess(
+                means, cam.replace(viewmatrix=vm), cfg, **kw)
+            return (pv.xy, pv.depth) \
+                + ((pv.conic,) if full or color else ()) \
+                + ((pv.color,) if color else ())
+
+        t = torch.func.vmap(lambda d: torch.func.jvp(
+            feats, (cam.viewmatrix,), (d,))[1])(tw)
+        return torch.cat([t[0], t[1][..., None], *t[2:]], -1).movedim(
+            0, 1).reshape(means.shape[0], -1)
+
+    def col_err(x, ref, k_t):
+        p = ref.shape[0]
+        err = (x.double() - ref).abs().reshape(p, k_t, -1).amax(0)
+        scale = ref.abs().reshape(p, k_t, -1).amax((0, 1))
+        return err / scale.clamp_min(1e-300)
+
+    tan_lines = [ln for ln in reg_lines if "preprocess_tangent_kernel" in ln]
+    for ln in tan_lines:
+        log(f"[tangents] {ln}")
+    check(len(tan_lines) == 8,
+          "preprocess_tangents: its 8 instantiations built")
+    k_t = 6
+    rows = {}
+    for tag, wall_res, (tanx, tany, h, w) in TANGENT_SCENES:
+        room = synthetic.replica_like_model(seed=0, wall_res=wall_res,
+                                            device=dev)
+        view = synthetic.walkthrough_trajectory(4, seed=0, device=dev)[1]
+        cam = Camera(viewmatrix=view, tanfovx=tanx, tanfovy=tany, height=h,
+                     width=w)
+        kw = {k: (v.detach() if torch.is_tensor(v) else v)
+              for k, v in room.raster_kwargs().items()}
+        means = room.means3D.detach()
+        p = means.shape[0]
+        sh3 = torch.randn((p, 16, 3), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(1)
+                          ) * SH_REST_STD
+        sh3[:, 0] = kw["shs"][:, 0]
+        base = RasterConfig(tile_h=32, tile_w=32)
+        variants = {"light": (base, dict(kw, sh_degree=0)),
+                    "full": (base.full_variant(), dict(kw, sh_degree=0)),
+                    "full_sh3": (base.full_variant(),
+                                 dict(kw, shs=sh3, sh_degree=3))}
+        tw = twist_basis(view)
+        row = {}
+        for name, (cfg, vkw) in variants.items():
+            color = ras.color_branch(cfg, **vkw)
+            full = bool(cfg.pose_cov2d_branch)
+            per_k = render.tangent_columns(full, color)
+            with torch.no_grad():
+                kern = kp.preprocess_tangents(means, cam, cfg, tw, **vkw)
+                again = kp.preprocess_tangents(means, cam, cfg, tw, **vkw)
+                comp = composite(means, cam, cfg, tw, vkw)
+                kw64 = {k: (v.double() if torch.is_tensor(v) else v)
+                        for k, v in vkw.items()}
+                ref = composite(means.double(),
+                                cam.replace(viewmatrix=view.double()), cfg,
+                                tw.double(), kw64)
+            ek, ec = col_err(kern, ref, k_t), col_err(comp, ref, k_t)
+            ratio = float((ek / torch.clamp(2.0 * ec, min=2.0 ** -22)).max())
+            del ref
+            ok = (ratio <= 1.0 and bool(torch.isfinite(kern).all())
+                  and torch.equal(kern, again)
+                  and kern.shape == (p, per_k * k_t))
+            check(ok, f"preprocess_tangents at {tag} ({name}, per_k "
+                      f"{per_k}): every column within 2x the float32 "
+                      f"composite's error against float64 (worst "
+                      f"{ratio:.3f} of the limit), finite, bit-equal to a "
+                      f"repeat")
+
+            def run_kernel():
+                kp.preprocess_tangents(means, cam, cfg, tw, **vkw)
+
+            def run_composite():
+                with torch.no_grad():
+                    composite(means, cam, cfg, tw, vkw)
+
+            ms, ms_comp = [], []
+            for _ in range(2):      # in turns
+                t, ahead = queued_ms(run_kernel)
+                check(ahead, f"preprocess_tangents at {tag} ({name}): "
+                             f"every call queued ahead of the card")
+                ms.append(t)
+                ms_comp.append(device_ms(run_composite, iters=5))
+            nbytes = tangent_bytes(p, k_t, per_k, full,
+                                   16 if color else 0)
+            bound = nbytes / PEAK_BYTES * 1e3
+            row[name] = dict(per_k=per_k, ms=ms, composite_ms=ms_comp,
+                             bound_ms=bound, mb=nbytes / 1e6,
+                             worst_of_limit=ratio,
+                             col_err_kernel=float(ek.max()),
+                             col_err_composite=float(ec.max()))
+            log(f"[tangents] {card}: {tag} ({p} Gaussians) {name}: kernel "
+                f"{', '.join(f'{t:.4f}' for t in ms)} ms, bound "
+                f"{bound:.4f} ms by bytes ({nbytes / 1e6:.1f} MB): "
+                f"{min(ms) / bound:.1f}x; the composite pass "
+                f"{', '.join(f'{t:.3f}' for t in ms_comp)} ms "
+                f"({min(ms_comp) / min(ms):.0f}x the kernel); largest "
+                f"column error {float(ek.max()):.3g} (composite "
+                f"{float(ec.max()):.3g})")
+        rows[tag] = row
+
+    # the record tracking frame: one launch a dual render, and the counter
+    ts = tracking_frame(device=dev)
+    track_frame(ts.model, ts.view0, ts.frame, ts.cfg, ts.tcfg, ts.camera)
+    torch.cuda.synchronize()
+    kp.reset_launches()
+    render.reset_launches()
+    profiling.reset()
+    with profiling.recording():
+        track_frame(ts.model, ts.view0, ts.frame, ts.cfg, ts.tcfg,
+                    ts.camera)
+        c = profiling.snapshot()["counters"]
+    profiling.reset()
+    duals = render.launches["render_jvp"]
+    slots = c.get("render.gaussians", 0) - c.get("render.prep_kernel", 0)
+    launches = dict(kp.launches)
+    log(f"[tangents] a tracked frame: {launches}, render_jvp {duals}, "
+        f"render.tangent_kernel {c.get('render.tangent_kernel')}, the "
+        f"tangents' Gaussians {slots}")
+    check(duals > 0 and launches["preprocess_tangents"] == duals
+          and slots == duals * ts.model.means3D.shape[0]
+          and c.get("render.tangent_kernel") == k_t * slots,
+          "preprocess_tangents: one launch a dual render of a tracked frame, "
+          "render.tangent_kernel = K x the tangents' Gaussians")
+    return dict(name="preprocess_tangents", route="cuda",
+                source="diff_gaussian_rasterization_tpu_torch/ops/kernels/"
+                       "csrc/preprocess.cu", replaces=None, sizes=rows,
+                launches_tracked_frame=launches["preprocess_tangents"],
+                ptxas=tan_lines)
 
 
 def main():
@@ -3683,6 +3870,10 @@ def main():
     log(f"[phase] 11 starts at +{time.time() - t_main:.1f} s")
     prep_entry = preprocess_phase(dev, check, card)
 
+    # ---- 12. the pose tangents' kernel ----------------------------------
+    log(f"[phase] 12 starts at +{time.time() - t_main:.1f} s")
+    tangent_entry = tangent_phase(dev, check, card, reg_lines)
+
     # the largest errors over both scales' comparisons and the SLAM run's
     err_fwd, err_bwd, err_rows, err_u, err_ts = (
         max(bench[k], mapped[k], slam_errs[k])
@@ -3747,7 +3938,7 @@ def main():
              ("segment_sum_rows_500k", "500k", rows_map.get(12, 0),
               err_rows),
              ("segment_sum_rows_f2", "f2", rows_fwd.get(2, 0), err_u))
-         ] + jvp_entries + basis_entries + [prep_entry]
+         ] + jvp_entries + basis_entries + [prep_entry, tangent_entry]
     log(f"[phase] done at +{time.time() - t_main:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"slam": slam}))

@@ -55,6 +55,7 @@ SIGNATURES = {
     "preprocess": {
         "preprocess_fwd": [_P] * 15,
         "preprocess_bwd": [_P] * 20,
+        "preprocess_tangents": [_P] * 9 + [_I, _I, _P, _P],
     },
 }
 

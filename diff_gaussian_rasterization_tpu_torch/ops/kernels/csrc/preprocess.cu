@@ -39,6 +39,24 @@
 // preprocess_view_kernel, one block, adds the blocks' partials in a fixed
 // order.  No float atomics: the gradients are bit-reproducible.
 //
+// What preprocess_tangents computes.  The forward mode of the same
+// composite along K view-matrix tangents dV [K, 16]: the per-Gaussian
+// columns of the dual render's tangent table (ops/rasterize.py::
+// pose_jvp_tables), per tangent dx, dy, ddepth; dA, dB, dC of the conic
+// (POSE_COV); dr, dg, db of the SH colour (POSE_SH, SH degree >= 1).  It
+// replaces no TPU kernel either: the JAX package's rasterize_with_pose_jvp
+// leaves the tangents to jax.linearize under XLA
+// (diff_gaussian_rasterization_tpu/ops/rasterize.py:664).  The port ran
+// them as torch.func.vmap of torch.func.jvp over the composite, whose
+// batched 3x3 products went to cuBLAS gemvx: ~24 ms a pass at 500k, K = 6,
+// SH 3.  Its bound is bytes too: 3 to 60 floats read a Gaussian (the
+// means; scales, rotations and 48 SH coefficients for the full chain) and
+// 3 K to 9 K written, 0.013 ms (light) to 0.067 ms (full, SH 3) at 500k,
+// K = 6.  One thread a Gaussian: the primal intermediates recomputed in
+// registers once, then a loop over the K tangents (read through the
+// read-only cache, like the view) writing each Gaussian's row of
+// per_k * K floats once.
+//
 // What bounds it on an H100.  Bytes: ~200 operations a Gaussian forward
 // and ~400 backward against 25 and 39 floats moved (splatbench/work.py's
 // counts), so 500k Gaussians take 15 us forward and 23 us backward at
@@ -58,6 +76,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kView = 16;
+// preprocess_tangent_kernel: threads a block, tangents a shared-memory chunk
+constexpr int kTanThreads = 128, kTanChunk = 6;
 
 // flag bits of Params::flags (ops/kernels/preprocess.py)
 enum : int {
@@ -76,20 +96,22 @@ struct Params {
 };
 constexpr int kNF = 14, kNI = 10;
 
-// sh.py's constants, rounded to float32 as the composite's scalar products
-// round them
-constexpr float kC0 = 0.28209479177387814f;
-constexpr float kC1 = 0.4886025119029199f;
-constexpr float kC20 = 1.0925484305920792f, kC21 = -1.0925484305920792f,
-                kC22 = 0.31539156525252005f, kC23 = -1.0925484305920792f,
-                kC24 = 0.5462742152960396f;
-constexpr float kC30 = -0.5900435899266435f, kC31 = 2.890611442640554f,
-                kC32 = -0.4570457994644658f, kC33 = 0.3731763325901154f,
-                kC34 = -0.4570457994644658f, kC35 = 1.445305721320277f,
-                kC36 = -0.5900435899266435f;
+// sh.py's constants; T(kC...) rounds them to float32 as the composite's
+// scalar products round them (each double rounds to the float32 nearest
+// its decimal)
+constexpr double kC0 = 0.28209479177387814;
+constexpr double kC1 = 0.4886025119029199;
+constexpr double kC20 = 1.0925484305920792, kC21 = -1.0925484305920792,
+                 kC22 = 0.31539156525252005, kC23 = -1.0925484305920792,
+                 kC24 = 0.5462742152960396;
+constexpr double kC30 = -0.5900435899266435, kC31 = 2.890611442640554,
+                 kC32 = -0.4570457994644658, kC33 = 0.3731763325901154,
+                 kC34 = -0.4570457994644658, kC35 = 1.445305721320277,
+                 kC36 = -0.5900435899266435;
 
 // torch.clamp / clamp_min / clamp_max: NaN passes through
-__device__ __forceinline__ float clampf(float x, float lo, float hi) {
+template <typename T>
+__device__ __forceinline__ T clampf(T x, T lo, T hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 __device__ __forceinline__ float clamp_min(float x, float lo) {
@@ -97,6 +119,17 @@ __device__ __forceinline__ float clamp_min(float x, float lo) {
 }
 __device__ __forceinline__ float clamp_max(float x, float hi) {
   return x > hi ? hi : x;
+}
+
+// The helpers below run in float (the forward and backward, rounding as
+// the composite's float32 ops) or in double (the tangents).
+__device__ __forceinline__ float sqrt_t(float x) { return sqrtf(x); }
+__device__ __forceinline__ double sqrt_t(double x) { return sqrt(x); }
+__device__ __forceinline__ float fma_t(float x, float y, float z) {
+  return fmaf(x, y, z);
+}
+__device__ __forceinline__ double fma_t(double x, double y, double z) {
+  return fma(x, y, z);
 }
 
 // packed symmetric index: (xx, xy, xz, yy, yz, zz)
@@ -107,21 +140,23 @@ __device__ __forceinline__ int sym(int i, int j) {
 
 // Sigma3D = M M^T with M = R(q) diag(s): the rotation and scales kept for
 // the backward
+template <typename T>
 struct Cov3 {
-  float q[4];   // the quaternion R is built from (normalised or raw)
-  float qn;     // its norm before normalisation (1 when off)
-  float R[9];
-  float s[3];
+  T q[4];   // the quaternion R is built from (normalised or raw)
+  T qn;     // its norm before normalisation (1 when off)
+  T R[9];
+  T s[3];
 };
 
+template <typename T>
 __device__ __forceinline__ void cov3d(const float* scales, const float* rots,
-                                      int i, const Params& p, Cov3& c,
-                                      float S[6]) {
-  float r = rots[4 * i], x = rots[4 * i + 1], y = rots[4 * i + 2],
-        z = rots[4 * i + 3];
+                                      int i, const Params& p, Cov3<T>& c,
+                                      T S[6]) {
+  T r = rots[4 * i], x = rots[4 * i + 1], y = rots[4 * i + 2],
+    z = rots[4 * i + 3];
   c.qn = 1.f;
   if (p.flags & kNormalizeQ) {
-    const float n = sqrtf(((r * r + x * x) + y * y) + z * z);
+    const T n = sqrt_t(((r * r + x * x) + y * y) + z * z);
     c.qn = n;
     r = r / n; x = x / n; y = y / n; z = z / n;
   }
@@ -135,8 +170,8 @@ __device__ __forceinline__ void cov3d(const float* scales, const float* rots,
   c.R[6] = 2.f * (x * z - r * y);
   c.R[7] = 2.f * (y * z + r * x);
   c.R[8] = 1.f - 2.f * (x * x + y * y);
-  for (int j = 0; j < 3; ++j) c.s[j] = scales[3 * i + j] * p.scale_mod;
-  float M[9];
+  for (int j = 0; j < 3; ++j) c.s[j] = T(scales[3 * i + j]) * T(p.scale_mod);
+  T M[9];
   for (int a = 0; a < 3; ++a)
     for (int j = 0; j < 3; ++j) M[3 * a + j] = c.R[3 * a + j] * c.s[j];
   for (int a = 0; a < 3; ++a)
@@ -150,33 +185,36 @@ __device__ __forceinline__ void cov3d(const float* scales, const float* rots,
 // of a Gaussian near the camera is a small difference of larger terms, and
 // rounding each product on its own loses ~3 ulps of it, which the 1 / w^2
 // of the screen position's gradient then doubles.
-__device__ __forceinline__ float dot3(float x, float y, float z, float a,
-                                      float b, float c) {
-  return fmaf(z, c, fmaf(y, b, x * a));
+template <typename T>
+__device__ __forceinline__ T dot3(T x, T y, T z, T a, T b, T c) {
+  return fma_t(z, c, fma_t(y, b, x * a));
 }
 
 // The projection's intermediates, shared by the forward and the backward.
+template <typename T>
 struct Proj {
-  float m[3];
-  float z;          // view depth (and the homogeneous w)
-  bool vis;         // z > near
-  float hx, hy;     // homogeneous x, y: [m, 1] (V P)[:, 0 / 1]
-  float den;        // (vis ? z : 1) + w_eps
-  float t0, t1, tz; // view point, tz = 1 behind the near plane
-  float u0, u1, uc0, uc1, tx, ty, inv_tz, inv_tz2;
-  float j00, j02, j11, j12;
-  float m0[3], m1[3];   // J W rows
-  float S[6];           // Sigma3D, packed
-  float sm0[3], sm1[3]; // Sigma m0, Sigma m1
-  float a, b, c;        // Sigma2D + lowpass
-  float det, inv_det;
+  T m[3];
+  T z;          // view depth (and the homogeneous w)
+  bool vis;     // z > near
+  T hx, hy;     // homogeneous x, y: [m, 1] (V P)[:, 0 / 1]
+  T den;        // (vis ? z : 1) + w_eps
+  T t0, t1, tz; // view point, tz = 1 behind the near plane
+  T u0, u1, uc0, uc1, tx, ty, inv_tz, inv_tz2;
+  T j00, j02, j11, j12;
+  T m0[3], m1[3];   // J W rows
+  T S[6];           // Sigma3D, packed
+  T sm0[3], sm1[3]; // Sigma m0, Sigma m1
+  T a, b, c;        // Sigma2D + lowpass
+  T det, inv_det;
   bool det_ok;
 };
 
-__device__ __forceinline__ void project(const float* means, const float* V,
-                                        int i, const Params& p, Proj& g) {
-  const float mx = means[3 * i], my = means[3 * i + 1],
-              mz = means[3 * i + 2];
+// The view depth, the near-plane test and the homogeneous x, y, w + w_eps
+// of the screen position (the fields of Proj up to den).
+template <typename T>
+__device__ __forceinline__ void center(const float* means, const T* V, int i,
+                                       const Params& p, Proj<T>& g) {
+  const T mx = means[3 * i], my = means[3 * i + 1], mz = means[3 * i + 2];
   g.m[0] = mx; g.m[1] = my; g.m[2] = mz;
   // means3D @ V[:3, c] + V[3, c]
   g.z = dot3(mx, my, mz, V[2], V[6], V[10]) + V[14];
@@ -187,6 +225,13 @@ __device__ __forceinline__ void project(const float* means, const float* V,
   g.hy = dot3(mx, my, mz, V[1] * p.p11, V[5] * p.p11, V[9] * p.p11) +
          V[13] * p.p11;
   g.den = (g.vis ? g.z : 1.f) + p.w_eps;
+}
+
+template <typename T>
+__device__ __forceinline__ void project(const float* means, const T* V, int i,
+                                        const Params& p, Proj<T>& g) {
+  center(means, V, i, p, g);
+  const T mx = g.m[0], my = g.m[1], mz = g.m[2];
 
   // compute_cov2d
   g.t0 = dot3(mx, my, mz, V[0], V[4], V[8]) + V[12];
@@ -194,8 +239,8 @@ __device__ __forceinline__ void project(const float* means, const float* V,
   g.tz = g.vis ? g.z : 1.f;
   g.u0 = g.t0 / g.tz;
   g.u1 = g.t1 / g.tz;
-  g.uc0 = clampf(g.u0, -p.limx, p.limx);
-  g.uc1 = clampf(g.u1, -p.limy, p.limy);
+  g.uc0 = clampf(g.u0, T(-p.limx), T(p.limx));
+  g.uc1 = clampf(g.u1, T(-p.limy), T(p.limy));
   g.tx = g.uc0 * g.tz;
   g.ty = g.uc1 * g.tz;
   g.inv_tz = 1.f / g.tz;
@@ -227,98 +272,100 @@ __device__ __forceinline__ void project(const float* means, const float* V,
 
 // The unit view direction of the SH colour: means3D - campos, campos =
 // -V[:3, :3] V[3, :3]; returns the norm (0 if the direction is 0).
-__device__ __forceinline__ float sh_dir(const float m[3], const float* V,
-                                        float d[3], float dirs[3]) {
+template <typename T>
+__device__ __forceinline__ T sh_dir(const T m[3], const T* V, T d[3],
+                                    T dirs[3]) {
   for (int a = 0; a < 3; ++a) {
-    const float cp = -((V[4 * a] * V[12] + V[4 * a + 1] * V[13]) +
-                       V[4 * a + 2] * V[14]);
+    const T cp = -((V[4 * a] * V[12] + V[4 * a + 1] * V[13]) +
+                   V[4 * a + 2] * V[14]);
     dirs[a] = m[a] - cp;
   }
-  const float n =
-      sqrtf((dirs[0] * dirs[0] + dirs[1] * dirs[1]) + dirs[2] * dirs[2]);
-  const float den = n > 0.f ? n : 1.f;
+  const T n =
+      sqrt_t((dirs[0] * dirs[0] + dirs[1] * dirs[1]) + dirs[2] * dirs[2]);
+  const T den = n > 0.f ? n : T(1.f);
   for (int a = 0; a < 3; ++a) d[a] = dirs[a] / den;
   return n;
 }
 
 // The SH basis of degree D at d: values b[k] and their derivatives by x,
 // y, z (bx, by, bz), k < (D + 1)^2.
-template <int D>
-__device__ __forceinline__ void sh_basis(const float d[3], float b[16],
-                                         float bx[16], float by[16],
-                                         float bz[16]) {
-  const float x = d[0], y = d[1], z = d[2];
+template <int D, typename T>
+__device__ __forceinline__ void sh_basis(const T d[3], T b[16], T bx[16],
+                                         T by[16], T bz[16]) {
+  const T x = d[0], y = d[1], z = d[2];
   for (int k = 0; k < 16; ++k) b[k] = bx[k] = by[k] = bz[k] = 0.f;
-  b[0] = kC0;
+  b[0] = T(kC0);
   if (D > 0) {
-    b[1] = -kC1 * y; by[1] = -kC1;
-    b[2] = kC1 * z;  bz[2] = kC1;
-    b[3] = -kC1 * x; bx[3] = -kC1;
+    b[1] = -T(kC1) * y; by[1] = -T(kC1);
+    b[2] = T(kC1) * z;  bz[2] = T(kC1);
+    b[3] = -T(kC1) * x; bx[3] = -T(kC1);
   }
   if (D > 1) {
-    const float xx = x * x, yy = y * y, zz = z * z;
-    const float xy = x * y, yz = y * z, xz = x * z;
-    b[4] = kC20 * xy; bx[4] = kC20 * y; by[4] = kC20 * x;
-    b[5] = kC21 * yz; by[5] = kC21 * z; bz[5] = kC21 * y;
-    b[6] = kC22 * ((2.f * zz - xx) - yy);
-    bx[6] = -2.f * kC22 * x; by[6] = -2.f * kC22 * y;
-    bz[6] = 4.f * kC22 * z;
-    b[7] = kC23 * xz; bx[7] = kC23 * z; bz[7] = kC23 * x;
-    b[8] = kC24 * (xx - yy); bx[8] = 2.f * kC24 * x;
-    by[8] = -2.f * kC24 * y;
+    const T xx = x * x, yy = y * y, zz = z * z;
+    const T xy = x * y, yz = y * z, xz = x * z;
+    b[4] = T(kC20) * xy; bx[4] = T(kC20) * y; by[4] = T(kC20) * x;
+    b[5] = T(kC21) * yz; by[5] = T(kC21) * z; bz[5] = T(kC21) * y;
+    b[6] = T(kC22) * ((2.f * zz - xx) - yy);
+    bx[6] = -2.f * T(kC22) * x; by[6] = -2.f * T(kC22) * y;
+    bz[6] = 4.f * T(kC22) * z;
+    b[7] = T(kC23) * xz; bx[7] = T(kC23) * z; bz[7] = T(kC23) * x;
+    b[8] = T(kC24) * (xx - yy); bx[8] = 2.f * T(kC24) * x;
+    by[8] = -2.f * T(kC24) * y;
     if (D > 2) {
-      b[9] = (kC30 * y) * (3.f * xx - yy);
-      bx[9] = 6.f * kC30 * xy; by[9] = 3.f * kC30 * (xx - yy);
-      b[10] = (kC31 * xy) * z;
-      bx[10] = kC31 * yz; by[10] = kC31 * xz; bz[10] = kC31 * xy;
-      b[11] = (kC32 * y) * ((4.f * zz - xx) - yy);
-      bx[11] = -2.f * kC32 * xy;
-      by[11] = kC32 * ((4.f * zz - xx) - 3.f * yy);
-      bz[11] = 8.f * kC32 * yz;
-      b[12] = (kC33 * z) * ((2.f * zz - 3.f * xx) - 3.f * yy);
-      bx[12] = -6.f * kC33 * xz; by[12] = -6.f * kC33 * yz;
-      bz[12] = kC33 * ((6.f * zz - 3.f * xx) - 3.f * yy);
-      b[13] = (kC34 * x) * ((4.f * zz - xx) - yy);
-      bx[13] = kC34 * ((4.f * zz - 3.f * xx) - yy);
-      by[13] = -2.f * kC34 * xy; bz[13] = 8.f * kC34 * xz;
-      b[14] = (kC35 * z) * (xx - yy);
-      bx[14] = 2.f * kC35 * xz; by[14] = -2.f * kC35 * yz;
-      bz[14] = kC35 * (xx - yy);
-      b[15] = (kC36 * x) * (xx - 3.f * yy);
-      bx[15] = 3.f * kC36 * (xx - yy); by[15] = -6.f * kC36 * xy;
+      b[9] = (T(kC30) * y) * (3.f * xx - yy);
+      bx[9] = 6.f * T(kC30) * xy; by[9] = 3.f * T(kC30) * (xx - yy);
+      b[10] = (T(kC31) * xy) * z;
+      bx[10] = T(kC31) * yz; by[10] = T(kC31) * xz; bz[10] = T(kC31) * xy;
+      b[11] = (T(kC32) * y) * ((4.f * zz - xx) - yy);
+      bx[11] = -2.f * T(kC32) * xy;
+      by[11] = T(kC32) * ((4.f * zz - xx) - 3.f * yy);
+      bz[11] = 8.f * T(kC32) * yz;
+      b[12] = (T(kC33) * z) * ((2.f * zz - 3.f * xx) - 3.f * yy);
+      bx[12] = -6.f * T(kC33) * xz; by[12] = -6.f * T(kC33) * yz;
+      bz[12] = T(kC33) * ((6.f * zz - 3.f * xx) - 3.f * yy);
+      b[13] = (T(kC34) * x) * ((4.f * zz - xx) - yy);
+      bx[13] = T(kC34) * ((4.f * zz - 3.f * xx) - yy);
+      by[13] = -2.f * T(kC34) * xy; bz[13] = 8.f * T(kC34) * xz;
+      b[14] = (T(kC35) * z) * (xx - yy);
+      bx[14] = 2.f * T(kC35) * xz; by[14] = -2.f * T(kC35) * yz;
+      bz[14] = T(kC35) * (xx - yy);
+      b[15] = (T(kC36) * x) * (xx - 3.f * yy);
+      bx[15] = 3.f * T(kC36) * (xx - yy); by[15] = -6.f * T(kC36) * xy;
     }
   }
 }
 
 // sh.eval_sh before its clamp, channel c, in its order of operations
-template <int D>
-__device__ __forceinline__ float sh_eval(const float* sh, const float d[3],
-                                         int c) {
-  const float x = d[0], y = d[1], z = d[2];
-  auto k = [&](int i) { return sh[3 * i + c]; };
-  float r = kC0 * k(0);
-  if (D > 0) r = ((r - (kC1 * y) * k(1)) + (kC1 * z) * k(2)) - (kC1 * x) * k(3);
+template <int D, typename T>
+__device__ __forceinline__ T sh_eval(const float* sh, const T d[3], int c) {
+  const T x = d[0], y = d[1], z = d[2];
+  auto k = [&](int i) { return T(sh[3 * i + c]); };
+  T r = T(kC0) * k(0);
+  if (D > 0)
+    r = ((r - (T(kC1) * y) * k(1)) + (T(kC1) * z) * k(2)) -
+        (T(kC1) * x) * k(3);
   if (D > 1) {
-    const float xx = x * x, yy = y * y, zz = z * z;
-    const float xy = x * y, yz = y * z, xz = x * z;
-    r = ((((r + (kC20 * xy) * k(4)) + (kC21 * yz) * k(5)) +
-          (kC22 * ((2.f * zz - xx) - yy)) * k(6)) +
-         (kC23 * xz) * k(7)) +
-        (kC24 * (xx - yy)) * k(8);
+    const T xx = x * x, yy = y * y, zz = z * z;
+    const T xy = x * y, yz = y * z, xz = x * z;
+    r = ((((r + (T(kC20) * xy) * k(4)) + (T(kC21) * yz) * k(5)) +
+          (T(kC22) * ((2.f * zz - xx) - yy)) * k(6)) +
+         (T(kC23) * xz) * k(7)) +
+        (T(kC24) * (xx - yy)) * k(8);
     if (D > 2) {
-      r = ((((((r + ((kC30 * y) * (3.f * xx - yy)) * k(9)) +
-               ((kC31 * xy) * z) * k(10)) +
-              ((kC32 * y) * ((4.f * zz - xx) - yy)) * k(11)) +
-             ((kC33 * z) * ((2.f * zz - 3.f * xx) - 3.f * yy)) * k(12)) +
-            ((kC34 * x) * ((4.f * zz - xx) - yy)) * k(13)) +
-           ((kC35 * z) * (xx - yy)) * k(14)) +
-          ((kC36 * x) * (xx - 3.f * yy)) * k(15);
+      r = ((((((r + ((T(kC30) * y) * (3.f * xx - yy)) * k(9)) +
+               ((T(kC31) * xy) * z) * k(10)) +
+              ((T(kC32) * y) * ((4.f * zz - xx) - yy)) * k(11)) +
+             ((T(kC33) * z) * ((2.f * zz - 3.f * xx) - 3.f * yy)) * k(12)) +
+            ((T(kC34) * x) * ((4.f * zz - xx) - yy)) * k(13)) +
+           ((T(kC35) * z) * (xx - yy)) * k(14)) +
+          ((T(kC36) * x) * (xx - 3.f * yy)) * k(15);
     }
   }
   return r;
 }
 
-__device__ __forceinline__ void load_view(const float* view, float V[16]) {
+template <typename T>
+__device__ __forceinline__ void load_view(const float* view, T V[16]) {
 #pragma unroll
   for (int k = 0; k < 16; ++k) V[k] = __ldg(view + k);
 }
@@ -335,11 +382,11 @@ __global__ void __launch_bounds__(kThreads) preprocess_fwd_kernel(
   if (i >= p.P) return;
   float V[16];
   load_view(view, V);
-  Proj g;
+  Proj<float> g;
   if (p.flags & kCovPre) {
     for (int k = 0; k < 6; ++k) g.S[k] = cov_pre[6 * i + k];
   } else {
-    Cov3 c3;
+    Cov3<float> c3;
     cov3d(scales, rots, i, p, c3, g.S);
   }
   project(means, V, i, p, g);
@@ -446,8 +493,8 @@ __global__ void __launch_bounds__(kThreads) preprocess_bwd_kernel(
   if (i < p.P) {
     float V[16];
     load_view(view, V);
-    Proj g;
-    Cov3 c3;
+    Proj<float> g;
+    Cov3<float> c3;
     if (p.flags & kCovPre) {
       for (int k = 0; k < 6; ++k) g.S[k] = cov_pre[6 * i + k];
     } else {
@@ -668,6 +715,194 @@ __global__ void __launch_bounds__(kThreads) preprocess_view_kernel(
   }
 }
 
+// The forward mode of the preprocess along K view tangents dV [K, 16]: for
+// Gaussian i, out[i, k * PER_K + j] is the derivative along dV[k] of, in
+// order, x, y, depth (always); A, B, C of the conic (with COV, else zeros
+// when the colour columns follow); r, g, b (with DEG >= 1, the SH colour
+// branch).  PER_K = 3, 6 or 9.  Each branch differentiates what the
+// composite lets the view reach under the flags: the depth (kPoseDepth);
+// the screen position through V P, w = 1 behind the near plane
+// (kPoseNdc); the EWA Sigma2D -> conic through the clamped view point, tz
+// = 1 where not visible, the clamp passing the tangent only inside its
+// range, det guarded (COV); the SH colour through the camera position
+// -V[:3, :3] V[3, :3], the guarded normalisation and the clamp at 0 (DEG).
+// Each product's tangent is taken in the composite's order, d(u v) =
+// du v + u dv.  The primal intermediates are recomputed once a Gaussian
+// and everything runs in double: the conic's tangent divides by det^2, so
+// float32's rounding of a, b, c (the composite's) sets its error, and
+// double leaves only the inputs' rounding (~0.1x the float32 composite's
+// error against float64).  K is the loop bound, in chunks of kTanChunk
+// tangents: their view tangents are read into shared memory once a block,
+// as double, and the rows' values staged there, so that the block writes
+// its rows' contiguous span (a row is per_k K floats; written from
+// registers, each warp store would touch 32 sectors for 32 floats).
+// Without COV and DEG it reads only the means.
+template <bool COV, int DEG>
+__global__ void __launch_bounds__(kTanThreads) preprocess_tangent_kernel(
+    const float* __restrict__ means, const float* __restrict__ scales,
+    const float* __restrict__ rots, const float* __restrict__ shs,
+    const float* __restrict__ cov_pre, const float* __restrict__ view,
+    const float* __restrict__ dview, const Params p, int k_t,
+    float* __restrict__ out) {
+  using T = double;
+  constexpr int kPerK = DEG > 0 ? 9 : (COV ? 6 : 3);
+  __shared__ float stage[kTanThreads * kPerK * kTanChunk];
+  __shared__ T sdV[kTanChunk * 16];
+  const int i0 = blockIdx.x * kTanThreads;
+  const int rows = min(kTanThreads, p.P - i0);
+  // a thread past the last row computes the last row again and stores
+  // nothing: every thread reaches the block's barriers
+  const int i = threadIdx.x < rows ? i0 + threadIdx.x : p.P - 1;
+  T V[16];
+  load_view(view, V);
+  Proj<T> g;
+  if constexpr (COV) {
+    if (p.flags & kCovPre) {
+      for (int k = 0; k < 6; ++k) g.S[k] = cov_pre[6 * i + k];
+    } else {
+      Cov3<T> c3;
+      cov3d(scales, rots, i, p, c3, g.S);
+    }
+    project(means, V, i, p, g);
+  } else {
+    center(means, V, i, p, g);
+  }
+  const T* m = g.m;
+  const bool pose_depth = p.flags & kPoseDepth, pose_ndc = p.flags & kPoseNdc;
+  const T vx = g.hx / g.den, vy = g.hy / g.den;
+  const T half_w = 0.5 * p.width, half_h = 0.5 * p.height;
+  const T p00 = p.p00, p11 = p.p11;
+  bool in0 = false, in1 = false;
+  if constexpr (COV) {
+    in0 = g.u0 >= -p.limx && g.u0 <= p.limx;
+    in1 = g.u1 >= -p.limy && g.u1 <= p.limy;
+  }
+
+  // The colour's derivative by the unit direction, a channel (zero where
+  // the clamp at 0 holds): dcol_c = gd[c] . d unit.
+  T gd[3][3] = {}, d[3] = {}, n = 0.0;
+  if constexpr (DEG > 0) {
+    T dirs[3];
+    n = sh_dir(m, V, d, dirs);
+    const float* sh = shs + static_cast<long long>(i) * p.sh_coeffs * 3;
+    T b[16], bx[16], by[16], bz[16];
+    sh_basis<DEG>(d, b, bx, by, bz);
+    constexpr int kCoef = (DEG + 1) * (DEG + 1);
+    for (int c = 0; c < 3; ++c) {
+      if (!(sh_eval<DEG>(sh, d, c) + 0.5 >= 0.0)) continue;
+#pragma unroll
+      for (int k = 0; k < kCoef; ++k) {
+        const T s = sh[3 * k + c];
+        gd[c][0] += bx[k] * s;
+        gd[c][1] += by[k] * s;
+        gd[c][2] += bz[k] * s;
+      }
+    }
+  }
+
+  for (int t0 = 0; t0 < k_t; t0 += kTanChunk) {
+    const int nc = min(kTanChunk, k_t - t0);
+    __syncthreads();
+    if (threadIdx.x < 16 * nc) sdV[threadIdx.x] = dview[16 * t0 + threadIdx.x];
+    __syncthreads();
+    for (int t = 0; t < nc; ++t) {
+      T dV[16];
+      for (int k = 0; k < 16; ++k) dV[k] = sdV[16 * t + k];
+      // [m, 1] dV[:, 2]: the depth's and the homogeneous w's tangent
+      const T dz = dot3(m[0], m[1], m[2], dV[2], dV[6], dV[10]) + dV[14];
+      T r[kPerK];
+      r[2] = pose_depth ? dz : 0.0;
+      if (pose_ndc) {
+        // (V P)[:, 0] = V[:, 0] p00, (V P)[:, 1] = V[:, 1] p11
+        const T dhx = dot3(m[0], m[1], m[2], dV[0] * p00, dV[4] * p00,
+                           dV[8] * p00) + dV[12] * p00;
+        const T dhy = dot3(m[0], m[1], m[2], dV[1] * p11, dV[5] * p11,
+                           dV[9] * p11) + dV[13] * p11;
+        const T dw = g.vis ? dz : 0.0;
+        r[0] = (dhx - dw * vx) / g.den * half_w;
+        r[1] = (dhy - dw * vy) / g.den * half_h;
+      } else {
+        r[0] = r[1] = 0.0;
+      }
+
+      if constexpr (COV) {
+        // the view point's tangent: [m, 1] dV[:, :3]
+        const T dt0 = dot3(m[0], m[1], m[2], dV[0], dV[4], dV[8]) + dV[12];
+        const T dt1 = dot3(m[0], m[1], m[2], dV[1], dV[5], dV[9]) + dV[13];
+        const T dtz = g.vis ? dz : 0.0;
+        const T duc0 = in0 ? (dt0 - dtz * g.u0) / g.tz : 0.0;
+        const T duc1 = in1 ? (dt1 - dtz * g.u1) / g.tz : 0.0;
+        const T dtx = dtz * g.uc0 + duc0 * g.tz;
+        const T dty = dtz * g.uc1 + duc1 * g.tz;
+        // d(1 / u) = -du (1 / u)^2
+        const T dinv = -dtz * g.inv_tz2;
+        const T dinv2 = 2.0 * (g.inv_tz * dinv);
+        const T dj00 = p.fx * dinv, dj11 = p.fy * dinv;
+        const T dj02 = (-p.fx * dtx) * g.inv_tz2 + (-p.fx * g.tx) * dinv2;
+        const T dj12 = (-p.fy * dty) * g.inv_tz2 + (-p.fy * g.ty) * dinv2;
+        // m0[b] = j00 V[b][0] + j02 V[b][2], m1[b] = j11 V[b][1] + j12 V[b][2]
+        T dm0[3], dm1[3];
+        for (int b = 0; b < 3; ++b) {
+          dm0[b] = (dj00 * V[4 * b] + dj02 * V[4 * b + 2]) +
+                   (g.j00 * dV[4 * b] + g.j02 * dV[4 * b + 2]);
+          dm1[b] = (dj11 * V[4 * b + 1] + dj12 * V[4 * b + 2]) +
+                   (g.j11 * dV[4 * b + 1] + g.j12 * dV[4 * b + 2]);
+        }
+        // a = m0 . S m0, b = m0 . S m1, c = m1 . S m1
+        T dsm0[3], dsm1[3];
+        for (int a = 0; a < 3; ++a) {
+          dsm0[a] = (g.S[sym(a, 0)] * dm0[0] + g.S[sym(a, 1)] * dm0[1]) +
+                    g.S[sym(a, 2)] * dm0[2];
+          dsm1[a] = (g.S[sym(a, 0)] * dm1[0] + g.S[sym(a, 1)] * dm1[1]) +
+                    g.S[sym(a, 2)] * dm1[2];
+        }
+        auto dot = [](const T* u, const T* w) {
+          return (u[0] * w[0] + u[1] * w[1]) + u[2] * w[2];
+        };
+        const T da = dot(dm0, g.sm0) + dot(g.m0, dsm0);
+        const T db = dot(dm0, g.sm1) + dot(g.m0, dsm1);
+        const T dc = dot(dm1, g.sm1) + dot(g.m1, dsm1);
+        // conic = (c, -b, a) / det, det = a c - b^2 where non-zero
+        const T ddet =
+            g.det_ok ? (dc * g.a + da * g.c) - (db * g.b + db * g.b) : 0.0;
+        const T dinv_det = -ddet * (g.inv_det * g.inv_det);
+        r[3] = dinv_det * g.c + dc * g.inv_det;
+        r[4] = -(dinv_det * g.b + db * g.inv_det);
+        r[5] = dinv_det * g.a + da * g.inv_det;
+      } else if constexpr (DEG > 0) {
+        r[3] = r[4] = r[5] = 0.0;
+      }
+
+      if constexpr (DEG > 0) {
+        // dirs = m + V[:3, :3] V[3, :3]: d dirs = dV[:3, :3] V[3, :3] +
+        // V[:3, :3] dV[3, :3]; d unit = (d dirs - d (d . d dirs)) / n, or
+        // d dirs where the direction is 0 (its norm's guard)
+        T dd[3];
+        for (int a = 0; a < 3; ++a)
+          dd[a] = ((dV[4 * a] * V[12] + dV[4 * a + 1] * V[13]) +
+                   dV[4 * a + 2] * V[14]) +
+                  ((V[4 * a] * dV[12] + V[4 * a + 1] * dV[13]) +
+                   V[4 * a + 2] * dV[14]);
+        if (n > 0.0) {
+          const T dn = (d[0] * dd[0] + d[1] * dd[1]) + d[2] * dd[2];
+          for (int a = 0; a < 3; ++a) dd[a] = (dd[a] - dn * d[a]) / n;
+        }
+        for (int c = 0; c < 3; ++c)
+          r[6 + c] = (gd[c][0] * dd[0] + gd[c][1] * dd[1]) + gd[c][2] * dd[2];
+      }
+      float* o = stage + (threadIdx.x * nc + t) * kPerK;
+#pragma unroll
+      for (int j = 0; j < kPerK; ++j) o[j] = static_cast<float>(r[j]);
+    }
+    // the chunk's columns of the block's rows
+    __syncthreads();
+    const int w = kPerK * nc;
+    float* dst = out + static_cast<long long>(i0) * (kPerK * k_t) + kPerK * t0;
+    for (int e = threadIdx.x; e < rows * w; e += kTanThreads)
+      dst[static_cast<long long>(e / w) * (kPerK * k_t) + e % w] = stage[e];
+  }
+}
+
 Params params_of(const float* fpar, const int* ipar) {
   static_assert(sizeof(Params) == (kNF + kNI) * 4, "Params is packed");
   Params p;
@@ -747,5 +982,42 @@ extern "C" int preprocess_bwd(const float* means, const float* scales,
   }
   if (want_view)
     preprocess_view_kernel<<<1, kThreads, 0, s>>>(part, blocks, d_view);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out [P, per_k * k_t]: the columns of k_t tangents dview [k_t, 16] (see
+// preprocess_tangent_kernel).  The colour columns come with kPoseSh, SH
+// (no kColPre) and sh_degree >= 1; per_k must be the columns that the
+// flags give (3, 6 or 9), else nothing runs.
+extern "C" int preprocess_tangents(const float* means, const float* scales,
+                                   const float* rots, const float* shs,
+                                   const float* cov_pre, const float* view,
+                                   const float* dview, const float* fpar,
+                                   const int* ipar, int k_t, int per_k,
+                                   float* out, void* stream) {
+  const Params p = params_of(fpar, ipar);
+  const bool cov = p.flags & kPoseCov;
+  const int deg = ((p.flags & kPoseSh) && !(p.flags & kColPre) && shs)
+                      ? p.sh_degree : 0;
+  if (per_k != (deg > 0 ? 9 : (cov ? 6 : 3)) || k_t < 1 || deg > 3)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (p.P <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = (p.P + kTanThreads - 1) / kTanThreads;
+#define PREP_TAN(C, D)                                                  \
+  preprocess_tangent_kernel<C, D><<<blocks, kTanThreads, 0, s>>>(       \
+      means, scales, rots, shs, cov_pre, view, dview, p, k_t, out)
+  switch (deg * 2 + (cov ? 1 : 0)) {
+    case 0: PREP_TAN(false, 0); break;
+    case 1: PREP_TAN(true, 0); break;
+    case 2: PREP_TAN(false, 1); break;
+    case 3: PREP_TAN(true, 1); break;
+    case 4: PREP_TAN(false, 2); break;
+    case 5: PREP_TAN(true, 2); break;
+    case 6: PREP_TAN(false, 3); break;
+    case 7: PREP_TAN(true, 3); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef PREP_TAN
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,8 +22,14 @@ fusion.  The view matrix's gradient follows the composite's routing
 under the four branch flags (``pose_depth_branch``, ``pose_ndc_branch``
 through the projection matrix, ``pose_cov2d_branch``, ``pose_sh_branch``
 through the camera position); the depth copy in column 10 never reaches
-it.  The Function has no forward-mode rule: the pose tangents of
-``rasterize_with_pose_jvp`` keep calling the composite by name.
+it.
+
+:func:`preprocess_tangents` is the forward mode of the same composite
+along K view-matrix directions, the per-Gaussian columns of the dual
+render's tangent table (``rasterize.pose_jvp_tables``): on CUDA tensors
+the ``preprocess_tangents`` kernel, on CPU tensors its plain version
+:func:`preprocess_tangents_reference`, the same closed form in torch.  The
+Function itself has no forward-mode rule.
 
 ``launches`` counts the kernels' launches, only where they launch.
 """
@@ -38,7 +44,7 @@ from ...camera import Camera
 from ...config import RasterConfig
 from .. import projection
 from .. import sh as sh_mod
-from .render import _check_cuda
+from .render import _check_cuda, tangent_columns
 
 # the feature table's columns (``render.FEAT`` of them)
 FEAT_COLUMNS = ("x", "y", "A", "B", "C", "opacity", "r", "g", "b", "depth",
@@ -53,7 +59,8 @@ VIEW = 16      # floats of a block's partial view-matrix gradient
 NORMALIZE_Q, OPACITY_CULL, COV_PRE, COL_PRE, MEANS2D = 1, 2, 4, 8, 16
 POSE_DEPTH, POSE_NDC, POSE_COV, POSE_SH, WANT_VIEW = 32, 64, 128, 256, 512
 
-launches = {"preprocess_fwd": 0, "preprocess_bwd": 0}
+launches = {"preprocess_fwd": 0, "preprocess_bwd": 0,
+            "preprocess_tangents": 0}
 
 
 def reset_launches():
@@ -76,6 +83,14 @@ def unpack(feat, ints, mask) -> projection.Preprocessed:
         xy=feat[:, 0:2], conic=feat[:, 2:5], color=feat[:, 6:9],
         opacity=feat[:, 5], radius=ints[:, 0], rect_min=ints[:, 1:3],
         rect_max=ints[:, 3:5], tiles_touched=ints[:, 5])
+
+
+def color_branch(cfg: RasterConfig, shs=None, sh_degree: int = 0,
+                 colors_precomp=None, **_unused) -> bool:
+    """Whether the pose tangents carry the SH colour branch: with
+    ``cfg.pose_sh_branch``, colors from SH of degree 1 or more."""
+    return bool(cfg.pose_sh_branch and colors_precomp is None
+                and shs is not None and sh_degree >= 1)
 
 
 # --------------------------------------------------------------------------
@@ -340,6 +355,144 @@ def preprocess_bwd_reference(d_feat, means3D, camera: Camera,
     return out
 
 
+def preprocess_tangents_reference(means3D, camera: Camera, cfg: RasterConfig,
+                                  view_tangents, *, scales=None,
+                                  rotations=None, cov3D_precomp=None,
+                                  shs=None, sh_degree: int = 0,
+                                  colors_precomp=None,
+                                  scale_modifier: float = 1.0, **_unused):
+    """Plain version of ``preprocess_tangents``: the forward mode of the
+    composite ``projection.preprocess`` along ``view_tangents`` [K, 4, 4]
+    at ``camera.viewmatrix``, in closed form, any float dtype.  Returns
+    [P, per_k * K]: per tangent dx, dy, ddepth; then dA, dB, dC with
+    ``cfg.pose_cov2d_branch``; then dr, dg, db with the colour branch
+    (:func:`color_branch`), after conic columns that are zeros without
+    ``pose_cov2d_branch``.  The branch flags route the view as the
+    composite's detached copies do; ``means2D`` and the opacities carry no
+    tangent."""
+    v = camera.viewmatrix.detach()
+    m = means3D.detach()
+    dv = view_tangents.detach().to(m.dtype)                 # [K, 4, 4]
+    full = bool(cfg.pose_cov2d_branch)
+    color = color_branch(cfg, shs=shs, sh_degree=sh_degree,
+                         colors_precomp=colors_precomp)
+    p, k_t = m.shape[0], dv.shape[0]
+    mh = torch.cat([m, torch.ones_like(m[:, :1])], 1)
+    # [m, 1] X[:, c] for each tangent X: [K, P, 4]
+    lin = lambda x: torch.einsum("pr,krc->kpc", mh, x)
+    zero = m.new_zeros((k_t, p))
+    cols = []
+
+    # depth: z = [m, 1] V[:, 2]
+    z = mh @ v[:, 2]
+    vis = z > cfg.near
+    ldv = lin(dv)
+    dz = ldv[..., 2] if cfg.pose_depth_branch else zero
+
+    # screen position: xy = ndc2pix(hom[:2] / (hom_w + w_eps))
+    if cfg.pose_ndc_branch:
+        persp = camera.perspective
+        hom = mh @ (v @ persp)
+        den = torch.where(vis, hom[:, 3], torch.ones_like(z)) + cfg.w_eps
+        dhom = lin(dv @ persp)
+        dw = torch.where(vis, dhom[..., 3], zero)
+        dx = (dhom[..., 0] - hom[:, 0] / den * dw) / den * (
+            0.5 * camera.width)
+        dy = (dhom[..., 1] - hom[:, 1] / den * dw) / den * (
+            0.5 * camera.height)
+    else:
+        dx = dy = zero
+    cols += [dx, dy, dz]
+
+    # the conic through the EWA 2D covariance
+    if full:
+        if cov3D_precomp is not None:
+            cov6 = cov3D_precomp.detach()
+        else:
+            cov6 = projection.compute_cov3d(
+                scales.detach(), rotations.detach(), scale_modifier,
+                cfg.normalize_quaternions)
+        sig = projection.unpack_cov3d(cov6)
+        w3 = v[:3, :3]
+        t = m @ w3 + v[3, :3]
+        tz = torch.where(vis, t[:, 2], torch.ones_like(z))
+        dtz = torch.where(vis, ldv[..., 2], zero)
+        limx = cfg.fov_clamp * camera.tanfovx
+        limy = cfg.fov_clamp * camera.tanfovy
+        fx, fy = camera.focal_x, camera.focal_y
+        # each product's tangent in the composite's order: d(u v) = du v +
+        # u dv, and d(1 / u) = -du (1 / u)^2
+        inv = 1.0 / tz
+        inv2 = inv * inv
+        dinv = -dtz * inv2
+        dinv2 = 2.0 * (inv * dinv)
+
+        def jac(tc, dtc, lim, f):
+            # the clamped coordinate's Jacobian entries j_diag = f / tz and
+            # j_z = -f tc_clamped / tz^2, and their tangents
+            u = tc / tz
+            du = torch.where((u >= -lim) & (u <= lim),
+                             (dtc - u * dtz) / tz, zero)
+            uc = torch.clamp(u, -lim, lim)
+            tcl, dtcl = uc * tz, du * tz + uc * dtz
+            return (f * inv, f * dinv, -f * tcl * inv2,
+                    (-f * dtcl) * inv2 + (-f * tcl) * dinv2)
+
+        j00, dj00, j02, dj02 = jac(t[:, 0], ldv[..., 0], limx, fx)
+        j11, dj11, j12, dj12 = jac(t[:, 1], ldv[..., 1], limy, fy)
+        # m0[b] = j00 V[b, 0] + j02 V[b, 2], m1[b] = j11 V[b, 1] + j12 V[b, 2]
+        m0 = j00[:, None] * w3[:, 0] + j02[:, None] * w3[:, 2]
+        m1 = j11[:, None] * w3[:, 1] + j12[:, None] * w3[:, 2]
+        dvw = dv[:, None, :3, :3]                            # [K, 1, 3, 3]
+        dm0 = ((dj00[..., None] * w3[:, 0] + dj02[..., None] * w3[:, 2])
+               + (j00[:, None] * dvw[..., 0] + j02[:, None] * dvw[..., 2]))
+        dm1 = ((dj11[..., None] * w3[:, 1] + dj12[..., None] * w3[:, 2])
+               + (j11[:, None] * dvw[..., 1] + j12[:, None] * dvw[..., 2]))
+        sm0 = torch.einsum("pij,pj->pi", sig, m0)
+        sm1 = torch.einsum("pij,pj->pi", sig, m1)
+        dsm0 = torch.einsum("pij,kpj->kpi", sig, dm0)
+        dsm1 = torch.einsum("pij,kpj->kpi", sig, dm1)
+        a = (m0 * sm0).sum(1) + cfg.lowpass
+        b = (m0 * sm1).sum(1)
+        c = (m1 * sm1).sum(1) + cfg.lowpass
+        da = (dm0 * sm0).sum(-1) + (m0 * dsm0).sum(-1)
+        db = (dm0 * sm1).sum(-1) + (m0 * dsm1).sum(-1)
+        dc = (dm1 * sm1).sum(-1) + (m1 * dsm1).sum(-1)
+        det = a * c - b * b
+        ok = det != 0.0
+        inv_det = 1.0 / torch.where(ok, det, torch.ones_like(det))
+        ddet = torch.where(ok, (dc * a + da * c) - (db * b + db * b), zero)
+        dinv_det = -ddet * (inv_det * inv_det)
+        cols += [dc * inv_det + c * dinv_det, -(db * inv_det + b * dinv_det),
+                 da * inv_det + a * dinv_det]
+    elif color:
+        cols += [zero, zero, zero]
+
+    # the SH colour through the camera position -V[:3, :3] V[3, :3]
+    if color:
+        w3 = v[:3, :3]
+        dirs = m + w3 @ v[3, :3]
+        n = torch.linalg.norm(dirs, dim=-1, keepdim=True)
+        pos = n > 0
+        den = torch.where(pos, n, torch.ones_like(n))
+        d = dirs / den
+        ddirs = (dv[:, :3, :3] @ v[3, :3] + dv[:, 3, :3] @ w3.T)[:, None]
+        dd = torch.where(pos, (ddirs - d * (d * ddirs).sum(-1, keepdim=True))
+                         / den, ddirs)                      # [K, P, 3]
+        shs = shs.detach()
+        basis = _sh_basis(d, sh_degree)
+        result = sum(bk[:, None] * shs[:, k]
+                     for k, (bk, *_) in enumerate(basis))
+        dres = sum((bx * dd[..., 0] + by * dd[..., 1] + bz * dd[..., 2])
+                   [..., None] * shs[:, k]
+                   for k, (_, bx, by, bz) in enumerate(basis))
+        dcol = torch.where(result + 0.5 >= 0, dres, torch.zeros_like(dres))
+        cols += list(dcol.unbind(-1))
+
+    # [K, P, per_k] -> [P, K * per_k]
+    return torch.stack(cols, -1).movedim(0, 1).reshape(p, -1)
+
+
 # --------------------------------------------------------------------------
 # the kernels
 # --------------------------------------------------------------------------
@@ -487,6 +640,59 @@ def launch_preprocess_bwd(ins, d_feat, camera: Camera, cfg: RasterConfig,
     if rc != 0:
         raise RuntimeError(f"preprocess_bwd launch failed: CUDA error {rc}")
     launches["preprocess_bwd"] += 1
+    return out
+
+
+def preprocess_tangents(means3D, camera: Camera, cfg: RasterConfig,
+                        view_tangents, *, opacities, scales=None,
+                        rotations=None, cov3D_precomp=None, shs=None,
+                        sh_degree: int = 0, colors_precomp=None,
+                        scale_modifier: float = 1.0):
+    """The forward mode of the render op's preprocess along
+    ``view_tangents`` [K, 4, 4] at ``camera.viewmatrix``: [P, per_k * K],
+    the columns of :func:`preprocess_tangents_reference` (the arguments of
+    ``preprocess_table`` but ``means2D``).  On CUDA tensors (float32) the
+    ``preprocess_tangents`` kernel, on CPU tensors the plain version.  The
+    kernel is instantiated on the columns wanted and the SH degree: without
+    the conic or colour branch it reads only the means."""
+    kw = dict(scales=scales, rotations=rotations, cov3D_precomp=cov3D_precomp,
+              shs=shs, sh_degree=sh_degree, colors_precomp=colors_precomp,
+              scale_modifier=scale_modifier)
+    if means3D.device.type == "cpu":
+        return preprocess_tangents_reference(means3D, camera, cfg,
+                                             view_tangents, **kw)
+    from ._build import load
+    ins = _kernel_inputs(means3D, camera.viewmatrix, opacities, scales,
+                         rotations, cov3D_precomp, shs, sh_degree,
+                         colors_precomp, None)
+    dview = view_tangents.detach().contiguous()
+    _check_cuda(dview, torch.float32, "view_tangents")
+    if dview.device != ins["means"].device:
+        raise ValueError("view_tangents must be on the Gaussians' device")
+    if dview.dim() != 3 or dview.shape[1:] != (4, 4) or dview.shape[0] < 1:
+        raise ValueError(f"view_tangents must be [K >= 1, 4, 4], got "
+                         f"{tuple(dview.shape)}")
+    p, k_t = ins["means"].shape[0], dview.shape[0]
+    per_k = tangent_columns(bool(cfg.pose_cov2d_branch),
+                            color_branch(cfg, **kw))
+    out = torch.empty((p, per_k * k_t), dtype=torch.float32,
+                      device=dview.device)
+    if p == 0:
+        return out
+    m = 0 if ins["shs"] is None else ins["shs"].shape[1]
+    fpar, ipar = _params(camera, cfg, p, m, sh_degree, scale_modifier,
+                         _flags(cfg, ins["cov"], ins["col"], ins["m2d"]))
+    with torch.cuda.device(dview.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = load("preprocess").preprocess_tangents(
+            *(_ptr(ins[k]) for k in ("means", "scales", "rots", "shs", "cov",
+                                     "view")),
+            dview.data_ptr(), ctypes.addressof(fpar), ctypes.addressof(ipar),
+            k_t, per_k, out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"preprocess_tangents launch failed: CUDA error "
+                           f"{rc}")
+    launches["preprocess_tangents"] += 1
     return out
 
 

@@ -29,7 +29,9 @@ parameters, as the JAX version stops their gradients.
 
 ``rasterize_with_pose_jvp`` is the forward-mode companion used by
 Gauss-Newton tracking: one dual render gives the image and its derivatives
-along K view-matrix directions (the ``render_jvp`` kernel on the card).
+along K view-matrix directions (on the card the ``preprocess_tangents``
+kernel for the per-Gaussian tangents, the ``render_jvp`` kernel for the
+blend).
 ``bin_for_view`` computes a binning once so that later renders at nearby
 poses reuse it (``binn=``).
 
@@ -60,7 +62,8 @@ from ..parallel.mesh import axis_size, check_mesh
 from ..utils import profiling as prof
 from . import blend
 from .binning import Binned, bin_gaussians, default_max_instances
-from .kernels.preprocess import preprocess_table
+from .kernels.preprocess import (color_branch, preprocess_table,
+                                 preprocess_tangents)
 from .kernels.render import (FEAT, CoreOutputs, core_bwd, core_fwd,
                              core_fwd_jvp, tangent_columns)
 from .kernels.segment_sum import segment_sum_rows
@@ -408,14 +411,6 @@ class PoseJvpOutputs(NamedTuple):
     depth_median: torch.Tensor  # [K, H, W], zeros (pose-detached depth)
 
 
-def color_branch(cfg: RasterConfig, shs=None, sh_degree: int = 0,
-                 colors_precomp=None, **_unused) -> bool:
-    """Whether the dual render carries the SH colour branch: with
-    ``cfg.pose_sh_branch``, colors from SH of degree 1 or more."""
-    return bool(cfg.pose_sh_branch and colors_precomp is None
-                and shs is not None and sh_degree >= 1)
-
-
 def pose_jvp_tables(means3D, camera: Camera, cfg: RasterConfig,
                     view_tangents, max_instances, gt_depth, binn=None,
                     **prep_kw):
@@ -426,35 +421,46 @@ def pose_jvp_tables(means3D, camera: Camera, cfg: RasterConfig,
     dB, dC with ``cfg.pose_cov2d_branch``; then dr, dg, db with the colour
     branch (:func:`color_branch`), after conic columns that are zeros
     without ``pose_cov2d_branch`` (``render.tangent_columns``).  The
-    primal table comes from the preprocess kernel pair (:func:`prepare`);
-    the tangents from the composite ``projection.preprocess`` on any
-    device, since the kernel pair's ``torch.autograd.Function`` has no
-    forward-mode rule.
+    primal table comes from the preprocess kernel pair (:func:`prepare`).
+    The tangents on CUDA tensors come from the ``preprocess_tangents``
+    kernel (``kernels/preprocess.py``: the closed-form forward mode of the
+    preprocess, one pass for all K); on CPU tensors from one batched
+    forward-mode pass over the composite ``projection.preprocess``
+    (``torch.func.vmap`` of ``torch.func.jvp``), the JAX package's
+    semantics, which the kernel's plain version is held to.
 
     Tracing on, it counts the Gaussians x directions given a colour
-    tangent (``render.color_tangents``) and the floats of the sorted
+    tangent (``render.color_tangents``), those the kernel computed
+    (``render.tangent_kernel``; card only) and the floats of the sorted
     tangent table (``render.tangent_floats``)."""
     full = bool(cfg.pose_cov2d_branch)
     color = color_branch(cfg, **prep_kw)
     p = means3D.shape[0]
     k_t = view_tangents.shape[0]
-
-    def feats_of_view(vm):
-        # the composite, by name: the kernel pair has no forward-mode rule
-        pv = preprocess(means3D, camera.replace(viewmatrix=vm), cfg,
-                        **prep_kw)
-        return (pv.xy, pv.depth) + ((pv.conic,) if full or color else ()) \
-            + ((pv.color,) if color else ())
-
     view = camera.viewmatrix
     if prof.tracing():
         prof.count("render.gaussians", p)
+        if means3D.is_cuda:
+            prof.count("render.tangent_kernel", p * k_t)
     with prof.span("render.tangents"):
-        # all K directions in one batched forward-mode pass: [K, P, ...]
-        tans = torch.func.vmap(lambda t: torch.func.jvp(
-            feats_of_view, (view,), (t,))[1])(view_tangents.to(view.dtype))
-        tan_feat = torch.cat([tans[0], tans[1][..., None], *tans[2:]], -1)
-        tan_feat = tan_feat.movedim(0, 1).reshape(p, -1)  # [P, per_k * K]
+        if means3D.is_cuda:
+            tan_feat = preprocess_tangents(means3D, camera, cfg,
+                                           view_tangents.to(view.dtype),
+                                           **prep_kw)
+        else:
+            def feats_of_view(vm):
+                pv = preprocess(means3D, camera.replace(viewmatrix=vm), cfg,
+                                **prep_kw)
+                return (pv.xy, pv.depth) \
+                    + ((pv.conic,) if full or color else ()) \
+                    + ((pv.color,) if color else ())
+
+            # all K directions in one batched forward-mode pass
+            tans = torch.func.vmap(lambda t: torch.func.jvp(
+                feats_of_view, (view,), (t,))[1])(
+                    view_tangents.to(view.dtype))
+            tan_feat = torch.cat([tans[0], tans[1][..., None], *tans[2:]],
+                                 -1).movedim(0, 1).reshape(p, -1)
     if max_instances is None:
         max_instances = cfg.max_instances or default_max_instances(
             p, cfg.instance_multiplier)
@@ -485,16 +491,16 @@ def rasterize_with_pose_jvp(means3D, camera: Camera, cfg: RasterConfig,
     moved to the front.  The per-Gaussian tangents of (xy, depth), with
     ``cfg.pose_cov2d_branch`` of the conic, and with ``cfg.pose_sh_branch``
     and SH of degree 1 or more of the colour (the full variant carries
-    both) come from one batched forward-mode pass over the composite
-    preprocess
-    (``torch.func.vmap`` of ``torch.func.jvp`` of ``projection.preprocess``,
-    on any device: the kernel pair that computes the primal has no
-    forward-mode rule); the preprocess's detached
-    copies of the view make the light variant's conic tangent and the
-    median's tangent zero.  The render core is the ``render_jvp`` kernel on
-    CUDA tensors and its plain version on CPU tensors.  Forward mode only:
-    nothing here records a reverse-mode graph.  ``binn`` reuses a binning
-    as in :func:`rasterize`.  ``mesh`` shards the tile grid over
+    both) come from one forward-mode pass of the preprocess: the
+    ``preprocess_tangents`` kernel on CUDA tensors, ``torch.func.vmap`` of
+    ``torch.func.jvp`` of the composite ``projection.preprocess`` on CPU
+    tensors (:func:`pose_jvp_tables`); the branch flags route the view as
+    the composite's detached copies do, which makes the light variant's
+    conic tangent and the median's tangent zero.  The render core is the
+    ``render_jvp`` kernel on CUDA tensors and its plain version on CPU
+    tensors.  Forward mode only: nothing here records a reverse-mode
+    graph.  ``binn`` reuses a binning as in :func:`rasterize`.  ``mesh``
+    shards the tile grid over
     ``tile_axis`` as :func:`rasterize` does (the light variant only, as in
     the JAX package: no conic or colour tangents), bit-equal to the
     unsharded render.

@@ -1128,8 +1128,9 @@ def test_preprocess_backward_bit_reproducible(dev):
 def test_preprocess_launches_once_a_render(dev):
     """``preprocess_fwd`` once a render, ``preprocess_bwd`` once a
     backward (with or without the view's gradient), once a binning, and
-    the dual render's primal through it too; a CUDA tensor the kernel does
-    not take raises."""
+    the dual render's primal through it too, its tangents through
+    ``preprocess_tangents`` once; a CUDA tensor the kernel does not take
+    raises."""
     from diff_gaussian_rasterization_tpu_torch.ops.kernels import (
         preprocess as kp)
     from diff_gaussian_rasterization_tpu_torch.models import lie
@@ -1144,9 +1145,11 @@ def test_preprocess_launches_once_a_render(dev):
         kp.reset_launches()
         out = ras.rasterize(means, cam.replace(viewmatrix=view), cfg,
                             track_off=track_off, **leaves, **rest)
-        assert kp.launches == {"preprocess_fwd": 1, "preprocess_bwd": 0}
+        assert kp.launches == {"preprocess_fwd": 1, "preprocess_bwd": 0,
+                               "preprocess_tangents": 0}
         (out.color.sum() + out.depth.sum()).backward()
-        assert kp.launches == {"preprocess_fwd": 1, "preprocess_bwd": 1}
+        assert kp.launches == {"preprocess_fwd": 1, "preprocess_bwd": 1,
+                               "preprocess_tangents": 0}
         assert (view.grad is None) == track_off
     kp.reset_launches()
     binn = ras.bin_for_view(means, cam, cfg, **leaves, **rest)
@@ -1155,19 +1158,158 @@ def test_preprocess_launches_once_a_render(dev):
     ras.rasterize_with_pose_jvp(means, cam, cfg, tw, binn=binn,
                                 **{k: v.detach() for k, v in leaves.items()},
                                 **rest)
-    assert kp.launches == {"preprocess_fwd": 2, "preprocess_bwd": 0}
+    assert kp.launches == {"preprocess_fwd": 2, "preprocess_bwd": 0,
+                           "preprocess_tangents": 1}
     with pytest.raises(ValueError):
         ras.rasterize(means.double(), cam, cfg, **{
             k: v.detach().double() for k, v in leaves.items()}, **rest)
 
 
-def test_pose_jvp_tables_keep_the_composite_tangents(dev):
-    """``rasterize_with_pose_jvp``'s tangent table on the card is still the
-    composite's forward-mode derivative, bit for bit, and its primal table
-    (now the kernel's) is the composite's to float32 rounding.  At SH 1
-    the full variant carries the colour branch: per tangent the conic's
-    columns and then the colour's (9 columns)."""
+# the tangent table's quantities, a tangent's columns in order
+TANGENT_COLUMNS = ("dx", "dy", "ddepth", "dA", "dB", "dC", "dr", "dg", "db")
+
+
+def twist_tangents(view):
     from diff_gaussian_rasterization_tpu_torch.models import lie
+    return torch.func.jacfwd(lambda x: lie.apply_twist(view, x))(
+        torch.full((6,), 1e-3, dtype=view.dtype,
+                   device=view.device)).movedim(-1, 0)
+
+
+def composite_tangents(means, cam, cfg, tw, kw):
+    """The composite's forward mode, ``pose_jvp_tables``' CPU route:
+    [P, per_k * K]."""
+    from diff_gaussian_rasterization_tpu_torch.ops import projection
+    full = bool(cfg.pose_cov2d_branch)
+    color = ras.color_branch(cfg, **kw)
+
+    def feats(vm):
+        pv = projection.preprocess(means, cam.replace(viewmatrix=vm), cfg,
+                                   **kw)
+        return (pv.xy, pv.depth) + ((pv.conic,) if full or color else ()) \
+            + ((pv.color,) if color else ())
+
+    t = torch.func.vmap(lambda d: torch.func.jvp(
+        feats, (cam.viewmatrix,), (d,))[1])(tw)
+    return torch.cat([t[0], t[1][..., None], *t[2:]], -1).movedim(
+        0, 1).reshape(means.shape[0], -1)
+
+
+def column_errors(x, ref, k_t):
+    """Each column's largest error over its quantity's largest entry in
+    ``ref`` (over the K tangents; a tangent whose column is zero in exact
+    arithmetic has only rounding noise of its own): [K, per_k]."""
+    p = ref.shape[0]
+    ref = ref.detach().double()
+    err = (x.detach().double() - ref).abs().reshape(p, k_t, -1).amax(0)
+    scale = ref.abs().reshape(p, k_t, -1).amax((0, 1))
+    return err / scale.clamp_min(1e-300)
+
+
+def assert_tangents_within(kern, comp, ref, k_t, tag):
+    """The kernel's error against ``ref`` (float64) no larger, column for
+    column, than twice the float32 composite's or 2**-22 (the measure of
+    ``test_preprocess_kernel_matches_float64``); returns the worst ratio."""
+    ek, ec = column_errors(kern, ref, k_t), column_errors(comp, ref, k_t)
+    limit = torch.clamp(2.0 * ec, min=2.0 ** -22)
+    per_k = ek.shape[1]
+    for j in range(per_k):
+        print(f"{tag} {TANGENT_COLUMNS[j]}: kernel "
+              f"{float(ek[:, j].max()):.3g}, composite "
+              f"{float(ec[:, j].max()):.3g}")
+    assert bool((ek <= limit).all()), (tag, ek / limit)
+    assert bool(torch.isfinite(kern).all()), tag
+    return float((ek / limit).max())
+
+
+def tangent_scene(name, variant, dev, seed=0):
+    """``prep_scene``'s scene with its leaves as float32 and float64 CUDA
+    tensors; ``full_sh3`` adds SH bands 1-3 (deviation 0.25, as the
+    replica-full-sh3 configuration) to the full variant."""
+    leaves, view, cam, cfg, deg = prep_scene(
+        name, "light" if variant == "light" else "full", seed)
+    if variant == "full_sh3":
+        p = leaves["shs"].shape[0]
+        rng = np.random.RandomState(seed + 1)
+        shs = rng.normal(scale=0.25, size=(p, 16, 3))
+        shs[:, 0] = leaves["shs"][:, 0]
+        leaves["shs"], deg = shs, 3
+    from diff_gaussian_rasterization_tpu_torch.camera import Camera
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        t = {k: torch.tensor(v, dtype=dt, device=dev)
+             for k, v in leaves.items() if k != "means2D"}
+        c = Camera(viewmatrix=torch.tensor(view, dtype=dt, device=dev),
+                   **cam)
+        out[dt] = (t.pop("means3D"), c, dict(t, sh_degree=deg))
+    return out, cfg
+
+
+@pytest.mark.parametrize("variant", ["light", "full", "full_sh3"])
+@pytest.mark.parametrize("scene", PREP_SCENES)
+def test_preprocess_tangents_match_float64(dev, scene, variant):
+    """``preprocess_tangents`` (the kernel) against the composite's forward
+    mode and against ``preprocess_tangents_reference``, both in float64 on
+    the card: each column's error over its quantity's largest entry no
+    larger than twice the float32 composite's own, or 2**-22; the layout
+    (per_k columns a tangent) as ``render.tangent_columns`` gives it."""
+    from diff_gaussian_rasterization_tpu_torch.ops.kernels import (
+        preprocess as kp)
+    data, cfg = tangent_scene(scene, variant, dev)
+    m32, c32, kw32 = data[torch.float32]
+    m64, c64, kw64 = data[torch.float64]
+    tw64 = twist_tangents(c64.viewmatrix)
+    tw32 = tw64.float()
+    color = ras.color_branch(cfg, **kw32)
+    assert color == (variant != "light" and kw32["sh_degree"] >= 1)
+    per_k = render.tangent_columns(bool(cfg.pose_cov2d_branch), color)
+    kp.reset_launches()
+    kern = kp.preprocess_tangents(m32, c32, cfg, tw32, **kw32)
+    assert kp.launches["preprocess_tangents"] == 1
+    assert kern.shape == (m32.shape[0], per_k * 6)
+    comp = composite_tangents(m32, c32, cfg, tw32, kw32)
+    ref = composite_tangents(m64, c64, cfg, tw64, kw64)
+    ref_cf = kp.preprocess_tangents_reference(m64, c64, cfg, tw64, **kw64)
+    tag = f"{scene}/{variant}"
+    assert_tangents_within(kern, comp, ref, 6, tag)
+    assert_tangents_within(kern, comp, ref_cf, 6, tag + " (closed form)")
+
+
+@pytest.mark.parametrize("k_t", [1, 7, 13])
+def test_preprocess_tangents_any_k(dev, k_t):
+    """Any K: the twist basis and random directions beyond it, past the
+    kernel's chunk of 6 tangents, each column within the same tolerance
+    against the composite in float64; the first six columns' tangents
+    bit-equal to a K = 6 call's."""
+    from diff_gaussian_rasterization_tpu_torch.ops.kernels import (
+        preprocess as kp)
+    data, cfg = tangent_scene("tum_mini", "full_sh3", dev)
+    m32, c32, kw32 = data[torch.float32]
+    m64, c64, kw64 = data[torch.float64]
+    g = torch.Generator(device=dev).manual_seed(k_t)
+    tw64 = torch.cat([twist_tangents(c64.viewmatrix), 0.1 * torch.randn(
+        (max(k_t - 6, 0), 4, 4), generator=g, dtype=torch.float64,
+        device=dev)])[:k_t]
+    tw32 = tw64.float()
+    kern = kp.preprocess_tangents(m32, c32, cfg, tw32, **kw32)
+    comp = composite_tangents(m32, c32, cfg, tw32, kw32)
+    ref = composite_tangents(m64, c64, cfg, tw64, kw64)
+    assert kern.shape == (m32.shape[0], 9 * k_t)
+    assert_tangents_within(kern, comp, ref, k_t, f"K={k_t}")
+    six = kp.preprocess_tangents(m32, c32, cfg, tw32[:6], **kw32)
+    n = 9 * min(k_t, 6)
+    assert torch.equal(kern[:, :n], six[:, :n])
+
+
+def test_pose_jvp_tables_keep_the_composite_tangents(dev):
+    """``rasterize_with_pose_jvp``'s tangent table on the card (now the
+    ``preprocess_tangents`` kernel's) is the composite's forward-mode
+    derivative column for column, within the kernel's tolerance against
+    the float64 composite (twice the float32 composite's error or
+    2**-22), in the same layout and gather; its primal table (the
+    kernel's) is the composite's to float32 rounding; both repeat bit for
+    bit.  At SH 1 the full variant carries the colour branch: per tangent
+    the conic's columns and then the colour's (9 columns)."""
     from diff_gaussian_rasterization_tpu_torch.ops import projection
     from diff_gaussian_rasterization_tpu_torch.ops.kernels import (
         preprocess as kp)
@@ -1175,29 +1317,70 @@ def test_pose_jvp_tables_keep_the_composite_tangents(dev):
                                  device=dev)
     prep_kw = {k: kw[k] for k in ("scales", "rotations", "opacities", "shs",
                                   "sh_degree")}
+    kw64 = {k: (v.double() if torch.is_tensor(v) else v)
+            for k, v in prep_kw.items()}
+    cam64 = cam.replace(viewmatrix=cam.viewmatrix.double())
     for cfg in (RasterConfig(tile_h=8, tile_w=8),
                 RasterConfig(tile_h=8, tile_w=8).full_variant()):
         full = bool(cfg.pose_cov2d_branch)
         color = ras.color_branch(cfg, **prep_kw)
         assert color == full
-        tw = torch.func.jacfwd(lambda x: lie.apply_twist(cam.viewmatrix, x))(
-            torch.full((6,), 1e-3, device=dev)).movedim(-1, 0)
+        tw = twist_tangents(cam.viewmatrix)
         with torch.no_grad():
             prep, binn, table, tans, _ = ras.pose_jvp_tables(
                 means, cam, cfg, tw, None, kw["gt_depth"], **prep_kw)
-
-            def feats(vm):
-                pv = projection.preprocess(
-                    means, cam.replace(viewmatrix=vm), cfg, **prep_kw)
-                return (pv.xy, pv.depth) + ((pv.conic,) if full else ()) \
-                    + ((pv.color,) if color else ())
-
-            t = torch.func.vmap(lambda d: torch.func.jvp(
-                feats, (cam.viewmatrix,), (d,))[1])(tw)
-            want = torch.cat([t[0], t[1][..., None], *t[2:]], -1).movedim(
-                0, 1).reshape(means.shape[0], -1)[binn.gauss_id]
+            again = ras.pose_jvp_tables(
+                means, cam, cfg, tw, None, kw["gt_depth"], **prep_kw)
+            want = composite_tangents(means, cam, cfg, tw,
+                                      prep_kw)[binn.gauss_id]
+            want64 = composite_tangents(means.double(), cam64, cfg,
+                                        tw.double(), kw64)[binn.gauss_id]
             comp = kp.feature_table(projection.preprocess(
                 means, cam, cfg, **prep_kw))[binn.gauss_id]
         assert tans.shape[1] == 6 * (9 if color else 3)
-        assert torch.equal(tans, want)
+        assert_tangents_within(tans, want, want64, 6,
+                               "full" if full else "light")
+        assert torch.equal(again[3], tans) and torch.equal(again[2], table)
         torch.testing.assert_close(table, comp, rtol=1e-5, atol=1e-5)
+
+
+def test_preprocess_tangents_launch_once_a_dual_render(dev):
+    """A tracked frame launches ``preprocess_tangents`` once a dual render
+    (K = 6: as often as ``render_jvp``), and with tracing on
+    ``render.tangent_kernel`` counts the tangents' Gaussians x K: the
+    Gaussians the tangents add to ``render.gaussians``, those beyond the
+    preprocess kernel's (``render.prep_kernel``); a CUDA tensor the kernel
+    does not take raises."""
+    from diff_gaussian_rasterization_tpu_torch.models.slam import track_frame
+    from diff_gaussian_rasterization_tpu_torch.ops.kernels import (
+        preprocess as kp)
+    from diff_gaussian_rasterization_tpu_torch.scenes import tracking_frame
+    from diff_gaussian_rasterization_tpu_torch.utils import profiling
+    ts = tracking_frame(p=3000, device=dev)
+    track_frame(ts.model, ts.view0, ts.frame, ts.cfg, ts.tcfg, ts.camera)
+    torch.cuda.synchronize()
+    kp.reset_launches()
+    render.reset_launches()
+    profiling.reset()
+    with profiling.recording():
+        track_frame(ts.model, ts.view0, ts.frame, ts.cfg, ts.tcfg,
+                    ts.camera)
+        c = profiling.snapshot()["counters"]
+    profiling.reset()
+    duals = render.launches["render_jvp"]
+    assert duals > 0
+    assert kp.launches["preprocess_tangents"] == duals
+    p = ts.model.means3D.shape[0]
+    tangent_slots = c["render.gaussians"] - c["render.prep_kernel"]
+    assert tangent_slots == duals * p
+    assert c["render.tangent_kernel"] == 6 * tangent_slots
+    means, kw, cam = small_scene(p=64, h=24, w=32, seed=2, sh_degree=1,
+                                 device=dev)
+    prep_kw = {k: kw[k] for k in ("scales", "rotations", "opacities", "shs",
+                                  "sh_degree")}
+    tw = twist_tangents(cam.viewmatrix)
+    cfg = RasterConfig(tile_h=8, tile_w=8)
+    with pytest.raises(ValueError):
+        kp.preprocess_tangents(means, cam, cfg, tw[:, :3], **prep_kw)
+    with pytest.raises(ValueError):
+        kp.preprocess_tangents(means, cam, cfg, tw.double(), **prep_kw)
