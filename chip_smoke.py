@@ -31,26 +31,27 @@ the tracking benchmark's frame (``bench_tracking.py``: 100,000 Gaussians,
    in float64; ``tile_scatter_sum`` on the forward's own per-pixel midx
    and ucross and ``segment_sum_rows`` on the gradient rows (F = 12) and
    on the uncertainty statistics (F = 2), bit-equal to their plain
-   versions on the CPU; ``segment_sum`` (the dense oracle's reduction) on
-   the pixels sorted by midx;
+   versions on the CPU; ``scatter_sum`` (the dense oracle's reduction: a
+   stable sort by key, then ``segment_sum_rows``) on the forward's pixels
+   keyed by midx, bit-equal to the CPU's;
 3. drive the main paths through the entry points a user calls, each with
    every launch counter set to 0 just before and read just after: the
    forward (``rasterize`` with precomputed colors, ``render_model`` on an
    SH-3 model from four poses; finite outputs, no overflow, the instance
    count, one ``render_fwd``, ``tile_scatter_sum`` and
-   ``segment_sum_rows`` (F = 2) launch and no ``segment_sum`` per render,
+   ``segment_sum_rows`` (F = 2) launch per render,
    bit-equal repeat renders, the card against the CPU path on a small
    scene); forward + backward ``rasterize`` (one ``render_fwd``,
    ``render_bwd`` and ``tile_scatter_sum`` and two ``segment_sum_rows``
    launches, F = 2 and 12, per step, finite gradients for every leaf and
    the view matrix, bit-equal repeat backwards, the card's gradients
    against the port's dense ``render_oracle`` (whose own path launches
-   ``segment_sum`` once) and against the CPU path in float64 on small
-   scenes); five ``map_step``s at 500k, whose loss must fall; and
-   ``track_frame`` at the record configuration, light and full variant (5
-   ``render_jvp``, ``tile_scatter_sum`` and ``segment_sum_rows`` and no
-   ``render_fwd`` or ``segment_sum`` launch per tracked frame, no overflow
-   in either level's frozen binning, pose error after below 1e-3,
+   ``segment_sum_rows`` once, its ``scatter_sum``) and against the CPU
+   path in float64 on small scenes); five ``map_step``s at 500k, whose
+   loss must fall; and ``track_frame`` at the record configuration, light
+   and full variant (5 ``render_jvp``, ``tile_scatter_sum`` and
+   ``segment_sum_rows`` and no ``render_fwd`` launch per tracked frame, no
+   overflow in either level's frozen binning, pose error after below 1e-3,
    bit-equal repeats), the dual render's primal bit-equal to
    ``rasterize``'s, the reused binning against a fresh one, and the card's
    tracking costs against the CPU path's on a small scene;
@@ -59,7 +60,7 @@ the tracking benchmark's frame (``bench_tracking.py``: 100,000 Gaussians,
    the 500k map step's render against ``index_add_`` of the in-range
    pixels' ucross at their midx and against the sorted scatter it
    replaced, and, checked bit-equal to the CPU, in its worst case, every
-   pixel naming its own instance; ``segment_sum``, and ``segment_sum_rows`` at 100k and at 500k
+   pixel naming its own instance; ``segment_sum_rows`` at 100k and at 500k
    with F = 12 and at 100k with F = 2, by device time from
    torch.profiler, since their launch from Python outlasts them; the
    uncertainty sums against the sorted scatter they replaced;
@@ -95,8 +96,8 @@ the tracking benchmark's frame (``bench_tracking.py``: 100,000 Gaussians,
    require grad (a zero ``means2D`` [P, 3] and the view matrix among them)
    and phase 3's loss, with ``alpha_grad`` on and off: ``rasterize``'s
    launches per forward + backward (one ``render_fwd``,
-   ``tile_scatter_sum`` and ``render_bwd``, two ``segment_sum_rows``, no
-   ``segment_sum``), finite outputs, no overflow, every output and
+   ``tile_scatter_sum`` and ``render_bwd``, two ``segment_sum_rows``),
+   finite outputs, no overflow, every output and
    gradient bit-equal to ``rasterize``'s in the same call (without the
    silhouette's term when ``alpha_grad`` is off), a zero third column of
    ``means2D.grad``; the full variant's 4-tuple, silhouette and pose
@@ -175,7 +176,7 @@ the tracking benchmark's frame (``bench_tracking.py``: 100,000 Gaussians,
    twice the float32 composite's error), bit-equal repeats, its device
    times beside its byte bound and the composite pass it replaces, in
    turns, its ``ptxas`` lines, and one launch a dual render of the record
-   tracked frame with ``render.tangent_kernel`` = K x its Gaussians.
+   tracked frame (as many as ``render_jvp``'s).
 
 Prints the card's name and power limit, a ``kernels`` JSON line, a
 ``slam`` JSON line, a ``mesh`` JSON line, a ``drivers`` JSON line, a
@@ -652,9 +653,11 @@ def tile_scatter_times(tag, st, card):
     read once, the two outputs written once); and the whole reduction by
     CUDA events and by device time against the path it replaced on the
     render path (``scatter_sum``: a stable sort of every pixel's key, a
-    searchsorted and the ``segment_sum`` kernel)."""
+    searchsorted and a ``segment_sum_rows`` over the sorted runs)."""
     import torch
     from diff_gaussian_rasterization_tpu_torch.ops.kernels import render
+    from diff_gaussian_rasterization_tpu_torch.ops.kernels import (
+        segment_sum as rows_sum)
     out_f, out_i, binn = st["out_f"], st["out_i"], st["binn"]
     midx, ucross = out_i[:, 2], out_f[:, 8]
     start, stop = binn.tile_start, binn.tile_stop
@@ -671,8 +674,8 @@ def tile_scatter_times(tag, st, card):
     lib = lambda: torch.zeros(n_inst, device=dev).index_add_(0, keys, vals)
     ms_lib, ms_lib_ev = device_ms(lib), time_ms(lib, iters=50)
     ones = torch.ones(n_tiles * q, dtype=torch.int32, device=dev)
-    old = lambda: render.scatter_sum(midx.reshape(-1), ucross.reshape(-1),
-                                     ones, n_inst)
+    old = lambda: rows_sum.scatter_sum(midx.reshape(-1), ucross.reshape(-1),
+                                       ones, n_inst)
     ms_old, ms_old_ev = device_ms(old), time_ms(old, iters=50)
     nbytes = n_tiles * q * 8 + n_tiles * 8 + n_inst * 8
     bound = nbytes / PEAK_BYTES * 1e3
@@ -691,7 +694,8 @@ def tile_scatter_times(tag, st, card):
         f"(bound {bound:.4f} ms by bytes, {nbytes} bytes), plain "
         f"{ms_plain:.4f} ms, index_add_ of the in-range pixels' ucross at "
         f"their midx {ms_lib:.4f} ms device time ({ms_lib_ev:.4f} ms); the "
-        f"sorted scatter it replaced (sort, searchsorted, segment_sum) "
+        f"sorted scatter it replaced (sort, searchsorted, "
+        f"segment_sum_rows) "
         f"{ms_old:.4f} ms device time ({ms_old_ev:.4f} ms by CUDA events)")
     return dict(ms=ms, plain_ms=ms_plain, bound_ms=bound, library_ms=ms_lib)
 
@@ -1073,8 +1077,8 @@ def tracking_path(st, dev, check):
     eye = ts.camera.viewmatrix
     err_before = float((ts.view0 - eye).abs().max())
     n_dual = ts.tcfg.coarse_iters + ts.tcfg.iters
-    want = dict(render_fwd=0, tile_scatter_sum=n_dual, segment_sum=0,
-                render_bwd=0, segment_sum_rows=n_dual, render_jvp=n_dual)
+    want = dict(render_fwd=0, tile_scatter_sum=n_dual, render_bwd=0,
+                segment_sum_rows=n_dual, render_jvp=n_dual)
     st["counts"], st["pose_err"] = {}, {}
     for variant in ("light", "full", "full_sh3"):
         v = st["variants"][variant]
@@ -1555,11 +1559,9 @@ def slam_record(dev, check, card):
           "and keyframe renders overflowed its instance budget")
     check(all(counts[k] > 0 for k in ("render_fwd", "render_bwd",
                                       "tile_scatter_sum", "segment_sum_rows",
-                                      "render_jvp"))
-          and counts["segment_sum"] == 0,
+                                      "render_jvp")),
           "slam record: the run launched render_fwd, render_bwd, "
-          "tile_scatter_sum, segment_sum_rows and render_jvp, and no "
-          "segment_sum")
+          "tile_scatter_sum, segment_sum_rows and render_jvp")
     errs = slam_kernels(state, scfg, cam_t, frames[SLAM_FRAMES - 1], check)
     # frame SLAM_FRAMES unprofiled, then three frames, the last a keyframe
     # with its mapping round
@@ -1711,7 +1713,6 @@ def api_launches_ok(counts, rows, n=1):
     """``rasterize``'s launches for ``n`` forward + backward steps."""
     return (all(counts[k] == n for k in ("render_fwd", "render_bwd",
                                          "tile_scatter_sum"))
-            and counts["segment_sum"] == 0
             and counts["segment_sum_rows"] == 2 * n
             and rows == {2: n, 12: n})
 
@@ -3280,8 +3281,9 @@ def tangent_phase(dev, check, card, reg_lines):
     composite's (or 2**-22); its device time (``queued_ms``) beside its
     byte bound and the composite pass it replaces (``torch.func.vmap`` of
     ``torch.func.jvp``, ``device_ms``), in turns; its ``ptxas`` lines; and
-    on the record tracking frame one launch a dual render and
-    ``render.tangent_kernel`` = K x the tangents' Gaussians."""
+    on the record tracking frame one launch a dual render, as many as
+    ``render_jvp``'s, and ``render.gaussians`` the Gaussians of every
+    ``preprocess_fwd`` and ``preprocess_tangents`` launch."""
     import torch
     from diff_gaussian_rasterization_tpu_torch.camera import Camera
     from diff_gaussian_rasterization_tpu_torch.config import RasterConfig
@@ -3415,16 +3417,14 @@ def tangent_phase(dev, check, card, reg_lines):
         c = profiling.snapshot()["counters"]
     profiling.reset()
     duals = render.launches["render_jvp"]
-    slots = c.get("render.gaussians", 0) - c.get("render.prep_kernel", 0)
     launches = dict(kp.launches)
+    preps = launches["preprocess_fwd"] + launches["preprocess_tangents"]
     log(f"[tangents] a tracked frame: {launches}, render_jvp {duals}, "
-        f"render.tangent_kernel {c.get('render.tangent_kernel')}, the "
-        f"tangents' Gaussians {slots}")
+        f"render.gaussians {c.get('render.gaussians')}")
     check(duals > 0 and launches["preprocess_tangents"] == duals
-          and slots == duals * ts.model.means3D.shape[0]
-          and c.get("render.tangent_kernel") == k_t * slots,
+          and c.get("render.gaussians") == preps * ts.model.means3D.shape[0],
           "preprocess_tangents: one launch a dual render of a tracked frame, "
-          "render.tangent_kernel = K x the tangents' Gaussians")
+          "render.gaussians = the Gaussians of every preprocess launch")
     return dict(name="preprocess_tangents", route="cuda",
                 source="diff_gaussian_rasterization_tpu_torch/ops/kernels/"
                        "csrc/preprocess.cu", replaces=None, sizes=rows,
@@ -3506,30 +3506,21 @@ def main():
                                  check)
     out_k, pix, rows_k = bench["out_k"], bench["pix"], bench["rows_k"]
 
-    # segment_sum, the dense oracle's per-Gaussian reduction (the render
-    # path no longer runs it), on the forward's pixel-level inputs sorted
+    # scatter_sum, the dense oracle's per-Gaussian reduction (the render
+    # path no longer runs it), on the forward's pixel-level inputs keyed
     # by midx: the sorted scatter it ran there before tile_scatter_sum
     out_f, out_i = bench["out_f"], bench["out_i"]
-    ucross = out_f[:, 8].reshape(-1)
-    keys = out_i[:, 2].reshape(-1).to(torch.int64)
-    keys = torch.where(keys >= 0, keys, torch.full_like(keys, table.shape[0]))
-    key_s, order = torch.sort(keys, stable=True)
-    bounds = torch.searchsorted(
-        key_s, torch.arange(table.shape[0] + 1, device=dev), out_int32=True)
-    seg_vals = ucross[order].contiguous()
-    seg_ones = torch.ones_like(seg_vals, dtype=torch.int32)
-    s_k = render.segment_sum(seg_vals, seg_ones, bounds)
-    s_p = render.segment_sum_reference(seg_vals, seg_ones, bounds)
+    sc_in = (out_i[:, 2].reshape(-1), out_f[:, 8].reshape(-1),
+             torch.ones(out_i[:, 2].numel(), dtype=torch.int32, device=dev))
+    s_k = rows_sum.scatter_sum(*sc_in, table.shape[0])
+    s_c = rows_sum.scatter_sum(*(x.cpu() for x in sc_in), table.shape[0])
     torch.cuda.synchronize()
-    err_seg = float((s_k[0] - s_p[0]).abs().max())
-    log(f"[kernel] segment_sum vs plain: max_abs_err {err_seg}, "
-        f"counts equal {bool(torch.equal(s_k[1], s_p[1]))}")
-    # the plain version's index_add_ adds with atomics on the card, in no
-    # fixed order: sums of up to ~10^3 terms differ by a few ulps
-    check(torch.allclose(s_k[0], s_p[0], rtol=1e-5, atol=1e-5)
-          and torch.equal(s_k[1], s_p[1]),
-          "segment_sum matches its plain version (rtol 1e-5, atol 1e-5; "
-          "counts exactly)")
+    err_seg = float((s_k[0].cpu() - s_c[0]).abs().max())
+    log(f"[kernel] scatter_sum card vs CPU: max_abs_err {err_seg}, counts "
+        f"equal {bool(torch.equal(s_k[1].cpu(), s_c[1]))}")
+    check(torch.equal(s_k[0].cpu(), s_c[0])
+          and torch.equal(s_k[1].cpu(), s_c[1]),
+          "scatter_sum on the card equals the CPU's bit for bit")
     # render_jvp on the tracking path's full-resolution dual render
     trk = tracking_kernels(dev, check)
 
@@ -3556,11 +3547,10 @@ def main():
     check(counts["render_fwd"] == renders,
           "one render_fwd launch per render on the main path")
     check(counts["tile_scatter_sum"] == renders
-          and counts["segment_sum"] == 0
           and counts["segment_sum_rows"] == renders
           and rows_fwd == {2: renders},
-          "one tile_scatter_sum and one segment_sum_rows (F = 2) launch and "
-          "no segment_sum launch per render on the main path")
+          "one tile_scatter_sum and one segment_sum_rows (F = 2) launch per "
+          "render on the main path")
     for i, o in enumerate([out_a] + model_outs):
         finite = all(bool(torch.isfinite(getattr(o, f).float()).all())
                      for f in ("color", "depth", "depth_median", "depth_var",
@@ -3609,12 +3599,11 @@ def main():
         f"segment_sum_rows by row width {rows_fb}")
     check(all(counts_fb[k] == 2 for k in ("render_fwd", "render_bwd",
                                            "tile_scatter_sum"))
-          and counts_fb["segment_sum"] == 0
           and counts_fb["segment_sum_rows"] == 4
           and rows_fb == {2: 2, 12: 2},
-          "one render_fwd, render_bwd and tile_scatter_sum, two "
-          "segment_sum_rows (F = 2 and 12) and no segment_sum launches per "
-          "forward + backward step")
+          "one render_fwd, render_bwd and tile_scatter_sum and two "
+          "segment_sum_rows (F = 2 and 12) launches per forward + backward "
+          "step")
     check(all(bool(torch.isfinite(v).all()) and float(v.abs().max()) > 0
               for v in g_a.values()),
           f"finite, non-zero gradients for {sorted(g_a)}")
@@ -3628,15 +3617,16 @@ def main():
                                 device=dev)
     g_ras = grads_of(ras.rasterize, om, ocam, ocfg, okw, wc)
     # the oracle's own path: its per-Gaussian sums are the one caller of
-    # scatter_sum, and so of the segment_sum kernel
+    # scatter_sum, one segment_sum_rows launch (F = 2)
     render.reset_launches()
     g_or = grads_of(render_oracle, om, ocam, ocfg, okw, wc)
     torch.cuda.synchronize()
-    counts_or = dict(render.launches)
+    counts_or, rows_or = dict(render.launches), dict(render.row_launches)
     log(f"[main] the dense oracle's forward + backward, launches {counts_or}")
-    check(counts_or["segment_sum"] == 1 and counts_or["render_fwd"] == 0,
-          "one segment_sum launch (its per-Gaussian sums) and no render_fwd "
-          "per oracle render")
+    check(counts_or["segment_sum_rows"] == 1 and rows_or == {2: 1}
+          and counts_or["render_fwd"] == 0,
+          "one segment_sum_rows launch (F = 2: its per-Gaussian sums) and no "
+          "render_fwd per oracle render")
     err_or, ratio_or = grads_close(g_ras, g_or, 5e-4, 2e-5)
     # the card against the CPU path in float64 (the float32 CPU path and
     # the card each carry their own float32 error, reported beside it)
@@ -3706,12 +3696,10 @@ def main():
         f"width {rows_map}")
     check(all(counts_map[k] == 5 for k in ("render_fwd", "render_bwd",
                                            "tile_scatter_sum"))
-          and counts_map["segment_sum"] == 0
           and counts_map["segment_sum_rows"] == 10
           and rows_map == {2: 5, 12: 5},
-          "one render_fwd, render_bwd and tile_scatter_sum, two "
-          "segment_sum_rows (F = 2 and 12) and no segment_sum launches per "
-          "map_step")
+          "one render_fwd, render_bwd and tile_scatter_sum and two "
+          "segment_sum_rows (F = 2 and 12) launches per map_step")
     check(losses[-1] < losses[0], "the loss after five map steps is below "
                                   "step 0's")
     check(all(bool(torch.isfinite(getattr(model, f)).all())
@@ -3726,30 +3714,11 @@ def main():
     fwd_t = {"100k": render_fwd_times("100k", bench, core_kw, card),
              "500k": render_fwd_times("500k", mapped, core_kw, card,
                                       plain_iters=1)}
-    seg_kernel = lambda: render.segment_sum(seg_vals, seg_ones, bounds)
-    ms_seg, ms_seg_ev = device_ms(seg_kernel), time_ms(seg_kernel, iters=50)
-    ms_seg_plain = time_ms(lambda: render.segment_sum_reference(
-        seg_vals, seg_ones, bounds), iters=20)
-    seg_ids = torch.repeat_interleave(
-        torch.arange(table.shape[0], device=dev),
-        (bounds[1:] - bounds[:-1]).to(torch.int64))
-    lib_in = seg_vals[:seg_ids.shape[0]]
-    seg_lib = lambda: torch.zeros(table.shape[0], device=dev).index_add_(
-        0, seg_ids, lib_in)
-    ms_seg_lib, ms_seg_lib_ev = device_ms(seg_lib), time_ms(seg_lib,
-                                                            iters=50)
-    n_vals, n_seg = seg_vals.shape[0], bounds.shape[0] - 1
-    bound_seg = (n_vals * 8 + (n_seg + 1) * 4 + n_seg * 8) / PEAK_BYTES * 1e3
     with torch.no_grad():
         ms_ras = time_ms(lambda: ras.rasterize(means, cam, cfg, **render_kw),
                          iters=20)
         ms_front = time_ms(lambda: ras.prepare(
             means, cam, cfg, max_inst, kw["gt_depth"], **prep_kw), iters=20)
-    log(f"[time] {card}: segment_sum kernel {ms_seg:.4f} ms device time "
-        f"({ms_seg_ev:.4f} ms by CUDA events) on {n_vals} values / {n_seg} "
-        f"segments (bound {bound_seg:.4f} ms by bytes), plain "
-        f"{ms_seg_plain:.4f} ms, index_add_ {ms_seg_lib:.4f} ms device time "
-        f"({ms_seg_lib_ev:.4f} ms)")
     log(f"[time] {card}: whole forward rasterize {ms_ras:.3f} ms, "
         f"preprocess + binning {ms_front:.3f} ms")
 
@@ -3766,17 +3735,24 @@ def main():
                   "100k, F = 2", bench["stats"], binn, card)}
     # the uncertainty sums of one render as rasterize takes them (the
     # two columns stacked, one segment_sum_rows) against the path it
-    # replaced (a stable sort of the instances' Gaussian ids, a
-    # searchsorted and a segment_sum): host and device together by CUDA
-    # events, and device time
+    # replaced (scatter_sum: a stable sort of the instances' Gaussian ids,
+    # a searchsorted and a segment_sum_rows over the sorted runs): host
+    # and device together by CUDA events, and device time; scatter_sum
+    # also against the CPU's, bit for bit
     keys = torch.where(binn.valid, binn.gauss_id,
                        torch.full_like(binn.gauss_id, -1))
     n_gauss = binn.gauss_start.shape[0]
-    u_old = lambda: render.scatter_sum(keys, out_k.u_inst, out_k.npix_inst,
-                                       n_gauss)
+    u_in = (keys, out_k.u_inst, out_k.npix_inst)
+    u_old = lambda: rows_sum.scatter_sum(*u_in, n_gauss)
     u_new = lambda: rows_sum.segment_sum_rows(
         torch.stack([out_k.u_inst, out_k.npix_inst.to(torch.float32)], 1),
         binn.inv, binn.gauss_start, binn.gauss_stop)
+    u_card, u_cpu = u_old(), rows_sum.scatter_sum(
+        *(x.cpu() for x in u_in), n_gauss)
+    check(torch.equal(u_card[0].cpu(), u_cpu[0])
+          and torch.equal(u_card[1].cpu(), u_cpu[1]),
+          "scatter_sum of one 100k render's uncertainty sums on the card "
+          "equals the CPU's bit for bit")
     log(f"[time] {card}: uncertainty sums of one 100k render: "
         f"segment_sum_rows {time_ms(u_new, iters=50):.4f} ms by CUDA events "
         f"({device_ms(u_new):.4f} ms device time), the sorted scatter it "
@@ -3904,17 +3880,7 @@ def main():
              ("tile_scatter_sum", "100k", counts["tile_scatter_sum"]),
              ("tile_scatter_sum_500k", "500k",
               counts_map["tile_scatter_sum"]))
-         ] + [
-        # the dense oracle's per-Gaussian sums, on its own path
-        dict(name="segment_sum", route="cuda",
-             source="diff_gaussian_rasterization_tpu_torch/ops/kernels/csrc/"
-                    "render_fwd.cu",
-             replaces="diff_gaussian_rasterization_tpu/ops/kernels/"
-                      "render_pallas.py:390",
-             launches=counts_or["segment_sum"], max_abs_err=err_seg,
-             ms=ms_seg, plain_ms=ms_seg_plain, bound_ms=bound_seg,
-             bound_by="bytes", library_ms=ms_seg_lib),
-    ] + [dict(name=name, route="cuda",
+         ] + [dict(name=name, route="cuda",
               source="diff_gaussian_rasterization_tpu_torch/ops/kernels/"
                      "csrc/render_bwd.cu",
               replaces="diff_gaussian_rasterization_tpu/ops/kernels/"

@@ -39,7 +39,6 @@ SIGNATURES = {
         "render_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                        _I, _F, _F, _F, _I, _P, _P],
         "tile_scatter_sum": [_P, _L, _P, _L, _P, _P, _I, _I, _P, _P, _P],
-        "segment_sum": [_P, _P, _P, _P, _P, _I, _P],
     },
     "render_bwd": {
         "render_bwd": [_P, _P, _P, _P, _P, _L, _P, _I, _I, _I, _I, _I,

@@ -112,13 +112,6 @@
 // rounds, the counting sort and the longest run's chain of adds are the
 // kernel's overhead.  The caller zero-fills the outputs; a block writes
 // only the instances its pixels name.
-//
-// segment_sum: out[p] = sum of vals[j] (and of ivals[j]) over
-// j in [bounds[p], bounds[p+1]), one thread per segment, summed in order.
-// The caller sorts by key stably first, so the sum order is the input
-// order: bit-reproducible from run to run, unlike a scatter with atomics.
-// Left for the dense oracle's per-Gaussian sums, whose keys are not
-// tile-local.
 
 #include <climits>
 
@@ -563,23 +556,6 @@ tile_scatter_sum_kernel(const int* __restrict__ midx, long long midx_stride,
   }
 }
 
-__global__ void segment_sum_kernel(const float* __restrict__ vals,
-                                   const int* __restrict__ ivals,
-                                   const int* __restrict__ bounds,
-                                   float* __restrict__ out,
-                                   int* __restrict__ out_i, int n) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  float acc = 0.f;
-  int iacc = 0;
-  for (int j = bounds[p]; j < bounds[p + 1]; ++j) {
-    acc += vals[j];
-    iacc += ivals[j];
-  }
-  out[p] = acc;
-  out_i[p] = iacc;
-}
-
 }  // namespace
 
 // out_f [n_tiles, 9, q] and out_i [n_tiles, 3, q] of the forward blend;
@@ -634,16 +610,5 @@ extern "C" int tile_scatter_sum(const int* midx, long long midx_stride,
                             static_cast<cudaStream_t>(stream)>>>(
       midx, midx_stride, ucross, ucross_stride, tile_start, tile_stop, q,
       u_inst, npix_inst);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int segment_sum(const float* vals, const int* ivals,
-                           const int* bounds, float* out, int* out_i, int n,
-                           void* stream) {
-  if (n <= 0) return 0;
-  const int threads = 256;
-  segment_sum_kernel<<<(n + threads - 1) / threads, threads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      vals, ivals, bounds, out, out_i, n);
   return static_cast<int>(cudaGetLastError());
 }

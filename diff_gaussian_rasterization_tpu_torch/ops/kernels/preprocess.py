@@ -28,9 +28,12 @@ it.
 along K view-matrix directions, the per-Gaussian columns of the dual
 render's tangent table (``rasterize.pose_jvp_tables``): on CUDA tensors
 the ``preprocess_tangents`` kernel, on CPU tensors its plain version
-:func:`preprocess_tangents_reference`, the same closed form in torch.  The
+:func:`preprocess_tangents_reference`, the same closed form in torch,
+which the tests hold to the composite's ``torch.func`` forward mode.  The
 Function itself has no forward-mode rule.
 
+The wrappers here are where the render op chooses between a kernel and
+its plain version, from the tensors' device; their callers never do.
 ``launches`` counts the kernels' launches, only where they launch.
 """
 

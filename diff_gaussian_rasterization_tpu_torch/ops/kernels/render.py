@@ -42,9 +42,9 @@ own tile's segment, so each tile reduces on its own: on the card the
 ``tile_scatter_sum`` kernel (``csrc/render_fwd.cu``: per tile, counting
 sorts in shared memory over passes of up to 32 instances, each instance
 summed in pixel order), bit-equal to ``index_add_`` on the CPU and
-bit-reproducible from run to run (a float scatter with atomics is not).  ``scatter_sum`` (a stable
-sort by key and the ``segment_sum`` kernel) is left for keys that are not
-tile-local, the dense oracle's.
+bit-reproducible from run to run (a float scatter with atomics is not).
+Keys that are not tile-local, the dense oracle's, go through
+``segment_sum.scatter_sum``.
 
 Input layout: ``table`` is the sorted feature table ``[I, 11]`` with
 columns x, y, A, B, C, opacity, r, g, b, depth, depth_sgview; ``tile_start``
@@ -82,8 +82,8 @@ CULL_ABS = 1e-2
 # the magnitudes of the expansion's terms (kBasisRel)
 BASIS_REL = 1e-6
 
-launches = {"render_fwd": 0, "tile_scatter_sum": 0, "segment_sum": 0,
-            "render_bwd": 0, "segment_sum_rows": 0, "render_jvp": 0}
+launches = {"render_fwd": 0, "tile_scatter_sum": 0, "render_bwd": 0,
+            "segment_sum_rows": 0, "render_jvp": 0}
 # segment_sum_rows launches by row width F (2: the uncertainty sums, 12:
 # the gradient rows), counted beside launches["segment_sum_rows"]
 row_launches: dict = {}
@@ -157,49 +157,6 @@ def pixel_coords(n_tiles: int, tiles_x: int, th: int, tw: int, height: int,
 # --------------------------------------------------------------------------
 
 
-def segment_sum_reference(vals, ivals, bounds):
-    """Plain version of the ``segment_sum`` kernel: per segment
-    ``[bounds[p], bounds[p+1])`` the sums of ``vals`` and ``ivals``."""
-    n = bounds.shape[0] - 1
-    seg = torch.repeat_interleave(
-        torch.arange(n, device=vals.device),
-        (bounds[1:] - bounds[:-1]).to(torch.int64))
-    m = seg.shape[0]
-    lo = int(bounds[0])
-    out = torch.zeros(n, dtype=vals.dtype, device=vals.device)
-    out_i = torch.zeros(n, dtype=torch.int32, device=vals.device)
-    out.index_add_(0, seg, vals[lo:lo + m])
-    out_i.index_add_(0, seg, ivals[lo:lo + m])
-    return out, out_i
-
-
-def segment_sum(vals, ivals, bounds):
-    """Per-segment sums of ``vals`` (float32) and ``ivals`` (int32), each
-    segment summed in order: the ``segment_sum`` kernel on a CUDA tensor,
-    :func:`segment_sum_reference` on a CPU tensor."""
-    if vals.device.type == "cpu":
-        return segment_sum_reference(vals, ivals, bounds)
-    _check_cuda(vals, torch.float32, "vals")
-    _check_cuda(ivals, torch.int32, "ivals")
-    _check_cuda(bounds, torch.int32, "bounds")
-    if ivals.shape != vals.shape or vals.dim() != 1 or bounds.dim() != 1:
-        raise ValueError("segment_sum takes 1-D vals/ivals of one length "
-                         "and 1-D bounds")
-    from ._build import load
-    n = bounds.shape[0] - 1
-    out = torch.empty(n, dtype=torch.float32, device=vals.device)
-    out_i = torch.empty(n, dtype=torch.int32, device=vals.device)
-    with torch.cuda.device(vals.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = load("render_fwd").segment_sum(
-            vals.data_ptr(), ivals.data_ptr(), bounds.data_ptr(),
-            out.data_ptr(), out_i.data_ptr(), n, stream)
-    if rc != 0:
-        raise RuntimeError(f"segment_sum launch failed: CUDA error {rc}")
-    launches["segment_sum"] += 1
-    return out, out_i
-
-
 def scatter_sum_reference(keys, vals, ivals, n: int):
     """``out[k] = sum of vals[keys == k]`` (and of ``ivals``); keys outside
     ``[0, n)`` are dropped.  ``index_add_``: in order on the CPU, with
@@ -211,19 +168,6 @@ def scatter_sum_reference(keys, vals, ivals, n: int):
     out.index_add_(0, keys, vals)
     out_i.index_add_(0, keys, ivals)
     return out[:n], out_i[:n]
-
-
-def scatter_sum(keys, vals, ivals, n: int):
-    """:func:`scatter_sum_reference` made bit-reproducible on the card: a
-    stable sort by key, then :func:`segment_sum` over each key's run, so
-    every key sums its values in input order (the CPU's order too)."""
-    keys = torch.where((keys >= 0) & (keys < n), keys,
-                       torch.full_like(keys, n)).to(torch.int64)
-    key_s, order = torch.sort(keys, stable=True)
-    bounds = torch.searchsorted(
-        key_s, torch.arange(n + 1, device=keys.device), out_int32=True)
-    return segment_sum(vals[order].contiguous(), ivals[order].contiguous(),
-                       bounds)
 
 
 def tile_scatter_sum_reference(midx, ucross, tile_start, tile_stop,

@@ -19,7 +19,8 @@ kernel bit for bit.
 
 The render op uses it twice: for the backward's gradient rows (F = 12) and
 for the per-Gaussian uncertainty sums (F = 2: each instance's ``u_inst``
-and its pixel count, exact in float32 below 2**24).
+and its pixel count, exact in float32 below 2**24).  :func:`scatter_sum`
+runs it over keys that are not grouped in runs, the dense oracle's.
 """
 
 from __future__ import annotations
@@ -80,3 +81,18 @@ def segment_sum_rows(rows, inv, gauss_start, gauss_stop):
     launches["segment_sum_rows"] += 1
     row_launches[f] = row_launches.get(f, 0) + 1
     return out
+
+
+def scatter_sum(keys, vals, ivals, n: int):
+    """:func:`render.scatter_sum_reference` made bit-reproducible on the
+    card: a stable sort by key, then :func:`segment_sum_rows` over each
+    key's run, so every key sums its values in input order (the CPU's
+    order too).  ``ivals`` ride along as floats, exact below 2**24."""
+    keys = torch.where((keys >= 0) & (keys < n), keys,
+                       torch.full_like(keys, n)).to(torch.int64)
+    key_s, order = torch.sort(keys, stable=True)
+    bounds = torch.searchsorted(
+        key_s, torch.arange(n + 1, device=keys.device), out_int32=True)
+    sums = segment_sum_rows(torch.stack([vals, ivals.to(vals.dtype)], 1),
+                            order.to(torch.int32), bounds[:-1], bounds[1:])
+    return sums[:, 0], sums[:, 1].to(torch.int32)

@@ -18,7 +18,7 @@ import torch
 from ..camera import Camera
 from ..config import RasterConfig
 from . import blend
-from .kernels.render import scatter_sum
+from .kernels.segment_sum import scatter_sum
 from .projection import preprocess
 
 

@@ -1,27 +1,31 @@
 """The render op, forward and backward (PyTorch port of the JAX package's
 ``ops/rasterize.py``).
 
+Every stage runs where the tensors are.  The modules of ``ops/kernels/``
+make that choice, each for its own stage: on CUDA tensors the stage's
+CUDA kernel, on CPU tensors its plain version, which the kernel is held
+to.  This module never looks at the device.
+
 Pipeline::
 
   preprocess          per-Gaussian projection and the feature table, one
                       torch.autograd.Function (``kernels/preprocess.py``:
-                      the preprocess_fwd / _bwd kernels on the card, the
-                      composite and its closed-form backward on the CPU)
+                      ``preprocess_fwd`` / ``_bwd``)
   -> bin_gaussians    instance expansion + stable (tile, depth) sort
   -> render core      one row gather of the sorted feature table, then the
-                      forward blend (the CUDA kernel on the card, the plain
-                      version on the CPU), inside a torch.autograd.Function
+                      forward blend (``kernels/render.py``: ``render_fwd``),
+                      inside a torch.autograd.Function
   -> image assembly   background composite, tile -> image layout, and the
                       deterministic per-Gaussian uncertainty sums
                       (``segment_sum_rows`` over the binning's runs)
 
-The render core's backward is analytic: the backward blend writes one
-gradient row per instance and ``segment_sum_rows`` reduces them, in order,
-onto the Gaussians (both CUDA kernels on the card, their plain versions on
-the CPU); no float atomics, so gradients are bit-reproducible.  Every other
-gradient (conic -> covariance -> scale/rotation/mean, the screen position
--> mean and view matrix, SH -> color) is the preprocess's closed-form
-backward, bit-reproducible too.
+The render core's backward is analytic: the backward blend
+(``render_bwd``) writes one gradient row per instance and
+``segment_sum_rows`` reduces them, in order, onto the Gaussians; no float
+atomics, so gradients are bit-reproducible.  Every other gradient (conic
+-> covariance -> scale/rotation/mean, the screen position -> mean and view
+matrix, SH -> color) is the preprocess's closed-form backward,
+bit-reproducible too.
 Median depth and the variance's direct term read the pose-stopped depth
 copy (column 10 of the feature table), so they move the means but never
 the pose.  ``track_off``/``map_off`` detach the view matrix or the Gaussian
@@ -29,9 +33,8 @@ parameters, as the JAX version stops their gradients.
 
 ``rasterize_with_pose_jvp`` is the forward-mode companion used by
 Gauss-Newton tracking: one dual render gives the image and its derivatives
-along K view-matrix directions (on the card the ``preprocess_tangents``
-kernel for the per-Gaussian tangents, the ``render_jvp`` kernel for the
-blend).
+along K view-matrix directions (``preprocess_tangents`` for the
+per-Gaussian tangents, ``render_jvp`` for the blend).
 ``bin_for_view`` computes a binning once so that later renders at nearby
 poses reuse it (``binn=``).
 
@@ -68,7 +71,6 @@ from .kernels.render import (FEAT, CoreOutputs, core_bwd, core_fwd,
                              core_fwd_jvp, tangent_columns)
 from .kernels.segment_sum import segment_sum_rows
 from .oracle import RenderOutputs
-from .projection import preprocess
 from .tiling import grid_dims, img_to_tiles, tiles_to_img
 
 
@@ -170,12 +172,9 @@ def count_instances(means3D, camera: Camera, cfg: RasterConfig = None, *,
 
 def _preprocess(means3D, camera: Camera, cfg: RasterConfig, **prep_kw):
     """``preprocess_table`` inside its span, counting the slots it projects
-    (``render.gaussians``) and, on the card, the slots its kernel projects
-    (``render.prep_kernel``).  Returns ``(prep, feat)``."""
+    (``render.gaussians``).  Returns ``(prep, feat)``."""
     if prof.tracing():
         prof.count("render.gaussians", means3D.shape[0])
-        if means3D.is_cuda:
-            prof.count("render.prep_kernel", means3D.shape[0])
     with prof.span("render.preprocess"):
         return preprocess_table(means3D, camera, cfg, **prep_kw)
 
@@ -303,8 +302,7 @@ def rasterize(means3D, camera: Camera, cfg: RasterConfig = None, *,
     """Render Gaussians; differentiable w.r.t. every Gaussian parameter,
     ``means2D`` and the view matrix.
 
-    Runs where the tensors are: the render core launches the CUDA kernels
-    on CUDA tensors and the plain versions on CPU tensors.  ``max_instances``
+    Runs where the tensors are (the module docstring).  ``max_instances``
     defaults to ``cfg.max_instances`` or ``P * cfg.instance_multiplier``;
     when the true count exceeds it, ``overflow`` is set (see
     ``ops.binning`` for what is dropped).
@@ -421,46 +419,23 @@ def pose_jvp_tables(means3D, camera: Camera, cfg: RasterConfig,
     dB, dC with ``cfg.pose_cov2d_branch``; then dr, dg, db with the colour
     branch (:func:`color_branch`), after conic columns that are zeros
     without ``pose_cov2d_branch`` (``render.tangent_columns``).  The
-    primal table comes from the preprocess kernel pair (:func:`prepare`).
-    The tangents on CUDA tensors come from the ``preprocess_tangents``
-    kernel (``kernels/preprocess.py``: the closed-form forward mode of the
-    preprocess, one pass for all K); on CPU tensors from one batched
-    forward-mode pass over the composite ``projection.preprocess``
-    (``torch.func.vmap`` of ``torch.func.jvp``), the JAX package's
-    semantics, which the kernel's plain version is held to.
+    primal table comes from the preprocess (:func:`prepare`), the tangents
+    from ``preprocess_tangents``, the closed-form forward mode of the
+    preprocess, one pass for all K.
 
     Tracing on, it counts the Gaussians x directions given a colour
-    tangent (``render.color_tangents``), those the kernel computed
-    (``render.tangent_kernel``; card only) and the floats of the sorted
+    tangent (``render.color_tangents``) and the floats of the sorted
     tangent table (``render.tangent_floats``)."""
     full = bool(cfg.pose_cov2d_branch)
     color = color_branch(cfg, **prep_kw)
     p = means3D.shape[0]
     k_t = view_tangents.shape[0]
-    view = camera.viewmatrix
     if prof.tracing():
         prof.count("render.gaussians", p)
-        if means3D.is_cuda:
-            prof.count("render.tangent_kernel", p * k_t)
     with prof.span("render.tangents"):
-        if means3D.is_cuda:
-            tan_feat = preprocess_tangents(means3D, camera, cfg,
-                                           view_tangents.to(view.dtype),
-                                           **prep_kw)
-        else:
-            def feats_of_view(vm):
-                pv = preprocess(means3D, camera.replace(viewmatrix=vm), cfg,
-                                **prep_kw)
-                return (pv.xy, pv.depth) \
-                    + ((pv.conic,) if full or color else ()) \
-                    + ((pv.color,) if color else ())
-
-            # all K directions in one batched forward-mode pass
-            tans = torch.func.vmap(lambda t: torch.func.jvp(
-                feats_of_view, (view,), (t,))[1])(
-                    view_tangents.to(view.dtype))
-            tan_feat = torch.cat([tans[0], tans[1][..., None], *tans[2:]],
-                                 -1).movedim(0, 1).reshape(p, -1)
+        tan_feat = preprocess_tangents(
+            means3D, camera, cfg,
+            view_tangents.to(camera.viewmatrix.dtype), **prep_kw)
     if max_instances is None:
         max_instances = cfg.max_instances or default_max_instances(
             p, cfg.instance_multiplier)
@@ -491,19 +466,15 @@ def rasterize_with_pose_jvp(means3D, camera: Camera, cfg: RasterConfig,
     moved to the front.  The per-Gaussian tangents of (xy, depth), with
     ``cfg.pose_cov2d_branch`` of the conic, and with ``cfg.pose_sh_branch``
     and SH of degree 1 or more of the colour (the full variant carries
-    both) come from one forward-mode pass of the preprocess: the
-    ``preprocess_tangents`` kernel on CUDA tensors, ``torch.func.vmap`` of
-    ``torch.func.jvp`` of the composite ``projection.preprocess`` on CPU
-    tensors (:func:`pose_jvp_tables`); the branch flags route the view as
-    the composite's detached copies do, which makes the light variant's
-    conic tangent and the median's tangent zero.  The render core is the
-    ``render_jvp`` kernel on CUDA tensors and its plain version on CPU
-    tensors.  Forward mode only: nothing here records a reverse-mode
-    graph.  ``binn`` reuses a binning as in :func:`rasterize`.  ``mesh``
-    shards the tile grid over
-    ``tile_axis`` as :func:`rasterize` does (the light variant only, as in
-    the JAX package: no conic or colour tangents), bit-equal to the
-    unsharded render.
+    both) come from one forward-mode pass of the preprocess
+    (:func:`pose_jvp_tables`); the branch flags route the view as the
+    composite ``projection.preprocess``'s detached copies do, which makes
+    the light variant's conic tangent and the median's tangent zero.  The
+    render core is ``render_jvp``.  Forward mode only: nothing here records
+    a reverse-mode graph.  ``binn`` reuses a binning as in
+    :func:`rasterize`.  ``mesh`` shards the tile grid over ``tile_axis`` as
+    :func:`rasterize` does (the light variant only, as in the JAX package:
+    no conic or colour tangents), bit-equal to the unsharded render.
 
     The tangents differentiate the direct form of the splat exponent:
     ``cfg.splat_basis_power`` raises ``ValueError`` ("pose-jvp requires the

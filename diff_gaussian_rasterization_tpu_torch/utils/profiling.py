@@ -348,7 +348,7 @@ def profile_breakdown(fn, n=3, top=12):
 # arguments as the profiler names them: segment_sum_rows_kernel<2> and <12>
 # are the two row widths
 PORT_KERNEL = re.compile(
-    r"\b(?:render_fwd|tile_scatter_sum|segment_sum|render_bwd|"
+    r"\b(?:render_fwd|tile_scatter_sum|render_bwd|"
     r"segment_sum_rows(?:_any)?|render_jvp|preprocess_fwd|preprocess_bwd|"
     r"preprocess_view)_kernel(?:<[^>()]*>)?")
 

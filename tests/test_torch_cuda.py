@@ -27,7 +27,7 @@ from diff_gaussian_rasterization_tpu_torch.config import RasterConfig
 from diff_gaussian_rasterization_tpu_torch.ops import rasterize as ras
 from diff_gaussian_rasterization_tpu_torch.ops.kernels import render
 from diff_gaussian_rasterization_tpu_torch.ops.kernels.segment_sum import (
-    segment_sum_rows, segment_sum_rows_reference)
+    scatter_sum, segment_sum_rows, segment_sum_rows_reference)
 from diff_gaussian_rasterization_tpu_torch.scenes import (
     bench_camera, bench_scene, small_scene)
 
@@ -153,8 +153,8 @@ def test_segment_sum_matches_plain(dev):
     keys = torch.randint(-1, 300, (20000,), generator=g)
     vals = torch.randn(20000, generator=g)
     ivals = torch.randint(0, 3, (20000,), generator=g, dtype=torch.int32)
-    a = render.scatter_sum(keys.to(dev), vals.to(dev), ivals.to(dev), 300)
-    b = render.scatter_sum(keys, vals, ivals, 300)
+    a = scatter_sum(keys.to(dev), vals.to(dev), ivals.to(dev), 300)
+    b = scatter_sum(keys, vals, ivals, 300)
     # both sum each key's values in input order: bit-equal
     assert torch.equal(a[0].cpu(), b[0]) and torch.equal(a[1].cpu(), b[1])
 
@@ -446,7 +446,7 @@ def test_api_bit_equal_to_rasterize(dev, alpha_grad):
     to ``rasterize``'s on the same inputs and loss (without its silhouette
     term when ``alpha_grad`` is off), with ``rasterize``'s launches: one
     render_fwd, tile_scatter_sum and render_bwd and two segment_sum_rows
-    (F = 2 and 12) per forward + backward, no segment_sum."""
+    (F = 2 and 12) per forward + backward."""
     from diff_gaussian_rasterization_tpu_torch import (
         GaussianRasterizationSettings, GaussianRasterizer)
     means, kw, cam = small_scene(p=200, h=40, w=56, seed=3, sh_degree=1,
@@ -477,7 +477,7 @@ def test_api_bit_equal_to_rasterize(dev, alpha_grad):
     torch.cuda.synchronize()
     counts, rows = dict(render.launches), dict(render.row_launches)
     assert counts == dict(counts, render_fwd=1, tile_scatter_sum=1,
-                          render_bwd=1, segment_sum=0, segment_sum_rows=2)
+                          render_bwd=1, segment_sum_rows=2)
     assert rows == {2: 1, 12: 1}
 
     b = leaves()
@@ -1177,7 +1177,7 @@ def twist_tangents(view):
 
 
 def composite_tangents(means, cam, cfg, tw, kw):
-    """The composite's forward mode, ``pose_jvp_tables``' CPU route:
+    """The composite's forward mode, the oracle the tangents are held to:
     [P, per_k * K]."""
     from diff_gaussian_rasterization_tpu_torch.ops import projection
     full = bool(cfg.pose_cov2d_branch)
@@ -1347,10 +1347,9 @@ def test_pose_jvp_tables_keep_the_composite_tangents(dev):
 def test_preprocess_tangents_launch_once_a_dual_render(dev):
     """A tracked frame launches ``preprocess_tangents`` once a dual render
     (K = 6: as often as ``render_jvp``), and with tracing on
-    ``render.tangent_kernel`` counts the tangents' Gaussians x K: the
-    Gaussians the tangents add to ``render.gaussians``, those beyond the
-    preprocess kernel's (``render.prep_kernel``); a CUDA tensor the kernel
-    does not take raises."""
+    ``render.gaussians`` counts the Gaussians of every ``preprocess_fwd``
+    and ``preprocess_tangents`` launch; a CUDA tensor the kernel does not
+    take raises."""
     from diff_gaussian_rasterization_tpu_torch.models.slam import track_frame
     from diff_gaussian_rasterization_tpu_torch.ops.kernels import (
         preprocess as kp)
@@ -1371,9 +1370,8 @@ def test_preprocess_tangents_launch_once_a_dual_render(dev):
     assert duals > 0
     assert kp.launches["preprocess_tangents"] == duals
     p = ts.model.means3D.shape[0]
-    tangent_slots = c["render.gaussians"] - c["render.prep_kernel"]
-    assert tangent_slots == duals * p
-    assert c["render.tangent_kernel"] == 6 * tangent_slots
+    assert c["render.gaussians"] == (kp.launches["preprocess_fwd"]
+                                     + duals) * p
     means, kw, cam = small_scene(p=64, h=24, w=32, seed=2, sh_degree=1,
                                  device=dev)
     prep_kw = {k: kw[k] for k in ("scales", "rotations", "opacities", "shs",

@@ -11,9 +11,11 @@ On seeded random Gaussians (300 of them, 40x56, 8x8 tiles) in float32:
 - forward against reverse: each tangent image contracted with a fixed
   cotangent equals the port's own ``rasterize`` backward pose gradient
   along that direction;
-- the light and Σ2D-only tangent tables bit-equal to the layout before
-  the colour columns (a copy of it below), and so is the full variant's
-  at SH 0, which takes no colour columns;
+- the light and Σ2D-only tangent tables, and the full variant's at SH 0,
+  which takes no colour columns, in the layout before the colour columns
+  (a copy of that code below): bit-equal to the closed form
+  ``preprocess_tangents_reference`` and within float32 rounding of the
+  composite's forward mode;
 - the counters a traced dual render records.
 
 Tolerances.  Both sides are float32 sums of a few hundred terms a pixel,
@@ -35,6 +37,7 @@ from diff_gaussian_rasterization_tpu_torch.models.gaussians import (
     GaussianModel)
 from diff_gaussian_rasterization_tpu_torch.ops import projection
 from diff_gaussian_rasterization_tpu_torch.ops import rasterize as ras
+from diff_gaussian_rasterization_tpu_torch.ops.kernels import preprocess as kp
 from diff_gaussian_rasterization_tpu_torch.ops.kernels import render
 from diff_gaussian_rasterization_tpu_torch.scenes import small_scene
 from diff_gaussian_rasterization_tpu_torch.utils import profiling
@@ -215,15 +218,19 @@ def test_tangent_tables_without_colour_keep_their_layout(variant, deg):
         _, binn, _, tans, _ = ras.pose_jvp_tables(means, cam, cfg, tw, None,
                                                   GT, **prep_kw)
         want = parent_tangent_table(means, cam, cfg, tw, binn, prep_kw)
+        ref = kp.preprocess_tangents_reference(means, cam, cfg, tw,
+                                               **prep_kw)[binn.gauss_id]
     assert tans.shape[1] == 6 * (3 if variant == "light" else 6)
-    assert torch.equal(tans, want)
+    assert torch.equal(tans, ref)
+    torch.testing.assert_close(tans, want, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("cov", [True, False])
 def test_colour_columns_follow_the_conic(cov):
     """With the colour branch a tangent has 9 columns: dx, dy, ddepth, the
     conic's three (zeros without ``pose_cov2d_branch``), then the colour's
-    three, which are the composite's forward-mode colour tangents."""
+    three, the closed form's bit for bit and the composite's forward-mode
+    colour tangents to float32 rounding."""
     means, prep_kw, cam = scene(3)
     cfg = RasterConfig(tile_h=TILE, tile_w=TILE, pose_cov2d_branch=cov,
                        pose_sh_branch=True)
@@ -235,9 +242,14 @@ def test_colour_columns_follow_the_conic(cov):
             lambda vm: projection.preprocess(
                 means, cam.replace(viewmatrix=vm), cfg, **prep_kw).color,
             (cam.viewmatrix,), (d,)))(tw)
+        ref = kp.preprocess_tangents_reference(means, cam, cfg, tw,
+                                               **prep_kw)[binn.gauss_id]
     by_k = tans.reshape(tans.shape[0], 6, 9)
     assert render.tangent_columns(cov, True) == 9
-    assert torch.equal(by_k[..., 6:9], dcolor.movedim(0, 1)[binn.gauss_id])
+    assert torch.equal(tans, ref)
+    torch.testing.assert_close(by_k[..., 6:9],
+                               dcolor.movedim(0, 1)[binn.gauss_id],
+                               rtol=1e-4, atol=1e-4)
     assert bool(by_k[..., 3:6].any()) == cov
     assert float(by_k[..., 6:9].abs().max()) > 0
 

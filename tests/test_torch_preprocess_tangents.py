@@ -1,9 +1,9 @@
 """The preprocess's pose tangents (``ops/kernels/preprocess.py``) on the
 CPU: :func:`preprocess_tangents_reference`, the closed form that the
-``preprocess_tangents`` kernel computes, against the composite's forward
-mode (``torch.func.vmap`` of ``torch.func.jvp`` of
-``ops/projection.py::preprocess``, what ``rasterize.pose_jvp_tables``
-runs on CPU tensors) in float64, column by column.
+``preprocess_tangents`` kernel computes and that
+``rasterize.pose_jvp_tables`` runs on CPU tensors, against the
+composite's forward mode (``torch.func.vmap`` of ``torch.func.jvp`` of
+``ops/projection.py::preprocess``) in float64, column by column.
 
 Every case has Gaussians past the field-of-view clamp, behind the near
 plane, with colours clamped at 0, and one at the camera centre (a zero
@@ -101,7 +101,8 @@ def make_case(name, seed=0):
 
 
 def composite_tangents(means, cam, cfg, tw, kw):
-    """``pose_jvp_tables``' CPU route: [P, per_k * K]."""
+    """The composite's forward mode, the oracle the closed form is held
+    to: [P, per_k * K]."""
     full = bool(cfg.pose_cov2d_branch)
     color = kp.color_branch(cfg, **kw)
 
@@ -163,10 +164,11 @@ def test_wrapper_runs_the_reference_on_the_cpu():
 
 
 @pytest.mark.parametrize("variant", ["light", "full"])
-def test_cpu_dual_render_keeps_the_composite_and_counts_no_kernel(variant):
-    """``pose_jvp_tables`` on CPU tensors gathers the composite's
-    forward-mode tangents, the reference's to float32 rounding; with
-    tracing on it counts its Gaussians and no kernel's."""
+def test_cpu_dual_render_gathers_the_reference_and_launches_no_kernel(
+        variant):
+    """``pose_jvp_tables`` on CPU tensors gathers the reference's tangents
+    bit for bit, the composite's forward mode to float32 rounding; it
+    launches no kernel, and with tracing on counts its Gaussians."""
     from diff_gaussian_rasterization_tpu_torch.scenes import small_scene
     means, skw, cam = small_scene(p=200, h=24, w=32, seed=5, sh_degree=1,
                                   device="cpu")
@@ -177,16 +179,17 @@ def test_cpu_dual_render_keeps_the_composite_and_counts_no_kernel(variant):
                                    "sh_degree")}
     tw = torch.func.jacfwd(lambda x: lie.apply_twist(cam.viewmatrix, x))(
         torch.full((6,), 1e-3)).movedim(-1, 0)
+    kp.reset_launches()
     profiling.reset()
     with torch.no_grad(), profiling.recording():
         _, binn, _, tans, _ = ras.pose_jvp_tables(
             means, cam, cfg, tw, None, skw["gt_depth"], **prep_kw)
     counters = profiling.snapshot()["counters"]
     profiling.reset()
-    want = composite_tangents(means, cam, cfg, tw, prep_kw)[binn.gauss_id]
-    assert torch.equal(tans, want)
     ref = kp.preprocess_tangents_reference(means, cam, cfg, tw,
                                            **prep_kw)[binn.gauss_id]
-    torch.testing.assert_close(tans, ref, rtol=1e-4, atol=1e-4)
+    assert torch.equal(tans, ref)
+    want = composite_tangents(means, cam, cfg, tw, prep_kw)[binn.gauss_id]
+    torch.testing.assert_close(tans, want, rtol=1e-4, atol=1e-4)
     assert counters["render.gaussians"] == 2 * means.shape[0]
-    assert counters.get("render.tangent_kernel", 0) == 0
+    assert kp.launches["preprocess_tangents"] == 0

@@ -23,7 +23,7 @@ from diff_gaussian_rasterization_tpu_torch.ops.binning import (
     default_max_instances)
 from diff_gaussian_rasterization_tpu_torch.ops.kernels import render
 from diff_gaussian_rasterization_tpu_torch.ops.kernels.segment_sum import (
-    segment_sum_rows, segment_sum_rows_reference)
+    scatter_sum, segment_sum_rows, segment_sum_rows_reference)
 
 from scenes import make_scene
 from test_torch_rasterize import CFG, port_camera, port_config, to_torch
@@ -115,8 +115,8 @@ def test_uncertainty_sums_equal_the_sorted_scatter(case):
             width=tcam.width)
     keys = torch.where(binn.valid, binn.gauss_id,
                        torch.full_like(binn.gauss_id, -1))
-    u, npix = render.scatter_sum(keys, core.u_inst, core.npix_inst,
-                                 means.shape[0])
+    u, npix = scatter_sum(keys, core.u_inst, core.npix_inst,
+                          means.shape[0])
     assert torch.equal(out.gau_uncertainty[:, 0], u)
     assert torch.equal(out.gau_related_pixels[:, 0], npix)
     assert out.gau_related_pixels.dtype == torch.int32

@@ -195,15 +195,13 @@ def test_track_frame_counters(ts):
 
 def test_track_frame_counts_the_tangents_slots(ts):
     """A tracked frame preprocesses its slots in the frozen binning, in
-    each evaluation's render and in each evaluation's tangents (the
-    composite's forward mode): ``render.gaussians`` counts all three; the
-    kernel's ``render.prep_kernel`` is counted on the card only."""
+    each evaluation's render and in each evaluation's tangents:
+    ``render.gaussians`` counts all three."""
     with profiling.recording():
         track(ts)
     c = profiling.snapshot()["counters"]
     assert c["render.gaussians"] == (1 + 2 * ts.tcfg.iters) * \
         ts.model.capacity
-    assert "render.prep_kernel" not in c
 
 
 @pytest.mark.parametrize("done", [True, False])
@@ -350,23 +348,30 @@ def test_recording_keeps_device_memory_flat(monkeypatch):
 
 @pytest.mark.cuda
 def test_prep_kernel_counter_on_the_card():
-    """On the card the kernel pair preprocesses every slot of a map step's
-    renders (``render.prep_kernel`` = ``render.gaussians``), and fewer than
-    a tracked frame counts, whose tangents run the composite."""
+    """On the card ``preprocess_fwd`` launches once a render: twice in a
+    map step over two keyframes, whose slots are all ``render.gaussians``
+    counts; in a tracked frame once for its frozen binning and once an
+    evaluation, beside one ``preprocess_tangents`` an evaluation, the
+    slots of both making up ``render.gaussians``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel runs only there")
+    from diff_gaussian_rasterization_tpu_torch.ops.kernels import (
+        preprocess as kp)
     profiling.reset()
     ts = world(device="cuda")
+    kp.reset_launches()
     with profiling.recording():
         map_steps(ts, k=2)
     c = profiling.snapshot()["counters"]
     profiling.reset()
-    assert c["render.prep_kernel"] == c["render.gaussians"] == \
-        2 * ts.model.capacity
+    assert kp.launches["preprocess_fwd"] == 2
+    assert c["render.gaussians"] == 2 * ts.model.capacity
+    kp.reset_launches()
     with profiling.recording():
         track(ts)
     c = profiling.snapshot()["counters"]
     profiling.reset()
     iters = ts.tcfg.iters
-    assert c["render.prep_kernel"] == (1 + iters) * ts.model.capacity
+    assert kp.launches["preprocess_fwd"] == 1 + iters
+    assert kp.launches["preprocess_tangents"] == iters
     assert c["render.gaussians"] == (1 + 2 * iters) * ts.model.capacity
