@@ -176,7 +176,16 @@ the tracking benchmark's frame (``bench_tracking.py``: 100,000 Gaussians,
    twice the float32 composite's error), bit-equal repeats, its device
    times beside its byte bound and the composite pass it replaces, in
    turns, its ``ptxas`` lines, and one launch a dual render of the record
-   tracked frame (as many as ``render_jvp``'s).
+   tracked frame (as many as ``render_jvp``'s);
+13. tracking's Gauss-Newton kernels (``twist_tangents``, ``gn_reduce``)
+   on the record tracking frame's dual render at 1200x680 and at the tum
+   cells' 640x480: against their plain versions (``gn_reduce`` full and
+   cost only, rtol 1e-5; ``twist_tangents`` against ``jacfwd`` in
+   float64), bit-equal repeats, device times by CUDA events over 100
+   calls queued behind a sleep, in turns with the plain path (what the
+   tracker ran before: ``gn_reduce_reference``; ``apply_twist`` and
+   ``torch.func.jacfwd``) and the host's time a call, the byte bound,
+   their ``ptxas`` lines, and their launches a record tracked frame.
 
 Prints the card's name and power limit, a ``kernels`` JSON line, a
 ``slam`` JSON line, a ``mesh`` JSON line, a ``drivers`` JSON line, a
@@ -3432,6 +3441,161 @@ def tangent_phase(dev, check, card, reg_lines):
                 ptxas=tan_lines)
 
 
+def gauss_newton_phase(dev, check, card, reg_lines):
+    """13. Tracking's Gauss-Newton kernels (``ops/kernels/
+    gauss_newton.py``): ``gn_reduce`` (full and cost only) on the record
+    tracking frame's dual render at its start pose, at 1200x680 and
+    640x480, against ``gn_reduce_reference`` (rtol 1e-5, atol 1e-5 of the
+    largest entry) and bit-equal to a repeat; ``twist_tangents`` against
+    ``jacfwd`` of ``apply_twist`` in float64; device times (``queued_ms``)
+    in turns with the plain path's, the host's microseconds a call, the
+    byte bound; the ``ptxas`` lines; the launches of a tracked frame."""
+    import math
+
+    import torch
+    from diff_gaussian_rasterization_tpu_torch.models import lie
+    from diff_gaussian_rasterization_tpu_torch.models.slam import track_frame
+    from diff_gaussian_rasterization_tpu_torch.ops import rasterize as ras
+    from diff_gaussian_rasterization_tpu_torch.ops.kernels import (
+        gauss_newton as gn)
+    from diff_gaussian_rasterization_tpu_torch.scenes import tracking_frame
+
+    def host_us(fn, iters=100):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        t = (time.perf_counter() - t0) / iters * 1e6
+        torch.cuda.synchronize()
+        return t
+
+    def timed(tag, fns):
+        """Device ms a call, kernel and plain in turns (k, p, p, k), and
+        the host's microseconds a call."""
+        ms = {k: [] for k in fns}
+        for k in list(fns) + list(fns)[::-1]:
+            t, ahead = queued_ms(fns[k])
+            if k == "kernel":
+                check(ahead, f"{tag}: every kernel call queued ahead of the "
+                             f"card")
+            ms[k].append(t)
+        return ms, {k: host_us(f) for k, f in fns.items()}
+
+    gn_lines = [ln for ln in reg_lines if ln.startswith("gauss_newton")]
+    for ln in gn_lines:
+        log(f"[gn] ptxas {ln}")
+    check(len(gn_lines) == 3, "gauss_newton.cu: three kernels built "
+                              "(twist_tangents, gn_reduce full and cost)")
+    rows = {}
+    for tag, (h, w) in (("1200x680", (680, 1200)), ("640x480", (480, 640))):
+        ts = tracking_frame(device=dev, height=h, width=w)
+        with torch.no_grad():
+            kwm = ts.model.raster_kwargs()
+        zero = torch.zeros(6, device=dev)
+        view, tw = gn.twist_tangents(ts.view0, zero)
+        with torch.no_grad():
+            j = ras.rasterize_with_pose_jvp(
+                ts.model.means3D.detach(), ts.camera.replace(viewmatrix=view),
+                ts.cfg, tw, gt_depth=ts.frame.depth, **kwm)
+        ims = (j.out.color, j.out.depth[0], j.out.opacity_map[0],
+               ts.frame.rgb, ts.frame.depth)
+        tans = (j.color, j.depth, j.opacity_map)
+        red = dict(sil_threshold=ts.tcfg.sil_threshold,
+                   sqc=math.sqrt(ts.tcfg.w_color),
+                   sqd=math.sqrt(ts.tcfg.w_depth), huber=ts.tcfg.huber)
+        counted = int(((ims[2] > red["sil_threshold"]) & (ims[4] > 0)).sum())
+        row = dict(pixels=h * w, counted=counted)
+        for name, t in (("full", tans), ("cost", None)):
+            got = gn.gn_reduce(*ims, tangents=t, **red)
+            again = gn.gn_reduce(*ims, tangents=t, **red)
+            want = gn.gn_reduce_reference(*ims, tangents=t, **red)
+            torch.cuda.synchronize()
+            errs = [float((a - b).abs().max() / b.abs().max())
+                    for a, b in zip(got, want) if a is not None]
+            ok = all(torch.allclose(a, b, rtol=1e-5,
+                                    atol=1e-5 * float(b.abs().max()))
+                     for a, b in zip(got, want) if a is not None)
+            same = all(torch.equal(a, b) for a, b in zip(got, again)
+                       if a is not None)
+            check(ok and same, f"gn_reduce {name} at {tag}: the plain "
+                               f"version's within rtol 1e-5, and a repeat "
+                               f"bit-equal")
+            ms, host = timed(f"gn_reduce {name} at {tag}", {
+                "kernel": lambda t=t: gn.gn_reduce(*ims, tangents=t, **red),
+                "plain": lambda t=t: gn.gn_reduce_reference(
+                    *ims, tangents=t, **red)})
+            # bytes each pixel's mask needs (silhouette, target depth), and
+            # a counted pixel's the rest: 3 + 1 + 3 primal and target, 30
+            # tangent floats (full)
+            nbytes = 4 * (2 * h * w + counted * (5 + (30 if t else 0)))
+            nbytes_all = 4 * h * w * (9 + (30 if t else 0))
+            bound = nbytes / PEAK_BYTES * 1e3
+            row[name] = dict(ms=ms, host_us=host, bound_ms=bound,
+                             bound_all_ms=nbytes_all / PEAK_BYTES * 1e3,
+                             rel_err=errs)
+            log(f"[gn] {card}: gn_reduce {name} at {tag} ({counted} of "
+                f"{h * w} pixels counted): kernel "
+                f"{', '.join(f'{x:.4f}' for x in ms['kernel'])} ms, plain "
+                f"{', '.join(f'{x:.4f}' for x in ms['plain'])} ms; bound "
+                f"{bound:.4f} ms by bytes ({nbytes / 1e6:.1f} MB; every "
+                f"pixel's {nbytes_all / 1e6:.1f} MB: "
+                f"{nbytes_all / PEAK_BYTES * 1e3:.4f} ms): "
+                f"{min(ms['kernel']) / bound:.1f}x; host "
+                f"{host['kernel']:.1f} / {host['plain']:.1f} us a call; "
+                f"largest error over the largest entry {errs}")
+        rows[tag] = row
+
+    # the twist basis at the record frame's start pose and a step away
+    ts = tracking_frame(device=dev)
+    v0 = ts.view0
+    for xi in (torch.zeros(6, device=dev),
+               torch.tensor([0.01, -0.02, 0.015, 0.004, -0.003, 0.005],
+                            device=dev)):
+        view, tan = gn.twist_tangents(v0, xi)
+        want = torch.func.jacfwd(lambda x: lie.apply_twist(v0.double(), x))(
+            xi.double()).movedim(-1, 0)
+        err = float((tan.double() - want).abs().max() / want.abs().max())
+        check(err <= 4 * 2.0 ** -24, f"twist_tangents at |xi| "
+                                     f"{float(xi.norm()):.3g}: within 4 "
+                                     f"float32 ulps of jacfwd in float64 "
+                                     f"({err:.3g})")
+
+    def jacfwd_path():
+        lie.apply_twist(v0, xi)
+        torch.func.jacfwd(lambda x: lie.apply_twist(v0, x))(xi)
+
+    ms, host = timed("twist_tangents", {
+        "kernel": lambda: gn.twist_tangents(v0, xi),
+        "plain": jacfwd_path})
+    rows["twist_tangents"] = dict(ms=ms, host_us=host)
+    log(f"[gn] {card}: twist_tangents kernel "
+        f"{', '.join(f'{x:.4f}' for x in ms['kernel'])} ms, apply_twist + "
+        f"jacfwd {', '.join(f'{x:.4f}' for x in ms['plain'])} ms (with "
+        f"their host waits); host {host['kernel']:.1f} / "
+        f"{host['plain']:.1f} us a call")
+
+    # launches of a record tracked frame: one twist and one reduction an
+    # iteration, and the view at each level's end
+    track_frame(ts.model, ts.view0, ts.frame, ts.cfg, ts.tcfg, ts.camera)
+    torch.cuda.synchronize()
+    gn.reset_launches()
+    track_frame(ts.model, ts.view0, ts.frame, ts.cfg, ts.tcfg, ts.camera)
+    torch.cuda.synchronize()
+    iters = ts.tcfg.coarse_iters + ts.tcfg.iters
+    launches = dict(gn.launches)
+    log(f"[gn] a record tracked frame ({iters} iterations, "
+        f"{ts.tcfg.pyramid} levels): {launches}")
+    check(launches == {"twist_tangents": iters + ts.tcfg.pyramid,
+                       "gn_reduce": iters},
+          "gauss_newton: one twist_tangents and one gn_reduce a Gauss-Newton "
+          "iteration, one twist_tangents a level's end")
+    return dict(name="gauss_newton", route="cuda",
+                source="diff_gaussian_rasterization_tpu_torch/ops/kernels/"
+                       "csrc/gauss_newton.cu", replaces=None, sizes=rows,
+                launches_tracked_frame=launches, ptxas=gn_lines)
+
+
 def main():
     import torch
 
@@ -3850,6 +4014,10 @@ def main():
     log(f"[phase] 12 starts at +{time.time() - t_main:.1f} s")
     tangent_entry = tangent_phase(dev, check, card, reg_lines)
 
+    # ---- 13. tracking's Gauss-Newton kernels ---------------------------
+    log(f"[phase] 13 starts at +{time.time() - t_main:.1f} s")
+    gn_entry = gauss_newton_phase(dev, check, card, reg_lines)
+
     # the largest errors over both scales' comparisons and the SLAM run's
     err_fwd, err_bwd, err_rows, err_u, err_ts = (
         max(bench[k], mapped[k], slam_errs[k])
@@ -3904,7 +4072,8 @@ def main():
              ("segment_sum_rows_500k", "500k", rows_map.get(12, 0),
               err_rows),
              ("segment_sum_rows_f2", "f2", rows_fwd.get(2, 0), err_u))
-         ] + jvp_entries + basis_entries + [prep_entry, tangent_entry]
+         ] + jvp_entries + basis_entries + [prep_entry, tangent_entry,
+                                            gn_entry]
     log(f"[phase] done at +{time.time() - t_main:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"slam": slam}))

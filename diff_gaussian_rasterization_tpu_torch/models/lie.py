@@ -4,8 +4,10 @@
 A pose update is a twist ``xi = (v, w)`` in R^6 applied to a base pose,
 ``w2c(xi) = exp(xi^) @ w2c_0``; tracking optimizes ``xi``.  Every function
 is written without in-place writes, so ``torch.func.jacfwd`` and
-``torch.func.vmap`` go through it: tracking takes the twist basis of the
-view matrix as ``jacfwd(lambda x: apply_twist(view0, x))(xi)``, [4, 4, 6].
+``torch.func.vmap`` go through it: the twist basis of the view matrix is
+``jacfwd(lambda x: apply_twist(view0, x))(xi)``, [4, 4, 6], which the
+tracker takes in closed form
+(``ops/kernels/gauss_newton.py::twist_tangents``).
 
 All public functions speak the package's row-vector convention (matrices
 are transposed w2c transforms; see ``camera.py``).

@@ -7,8 +7,9 @@ against the map, the Gaussians frozen: ``track_frame`` with exact
 Gauss-Newton / Levenberg-Marquardt on the pose JVP (``"gn"``, one dual
 render per iteration), Gauss-Newton on central differences of the forward
 (``"gn_fd"``), or Adam on the twist (``"adam"``).  The iterations are a
-Python loop whose accept/reject decisions stay on the device
-(``torch.where``), so no iteration waits on the host.
+Python loop whose accept/reject decisions stay on the device (``"gn"``:
+the LM state of ``ops/kernels/gauss_newton.py``), so no iteration waits
+on the host.
 
 Mapping (CG-SLAM's mapping step) is Adam on the Gaussian parameters over a
 window of keyframes, each rendered with ``track_off=True``, with one
@@ -37,6 +38,7 @@ import torch
 from ..camera import Camera
 from ..config import RasterConfig
 from ..ops.binning import default_max_instances
+from ..ops.kernels import gauss_newton as gn
 from ..ops.rasterize import bin_for_view, rasterize, rasterize_with_pose_jvp
 from ..parallel import sharded
 from ..parallel.mesh import (all_reduce, axis_group, axis_size, check_mesh,
@@ -191,29 +193,9 @@ def frozen_budget(cfg: RasterConfig, p: int, margin_px: float) -> int:
     return int(-(-int(mi * scale) // 1024) * 1024)
 
 
-def _huber_cost(r, huber: float):
-    """0.5 sum w r^2 with the Huber IRLS weights w, and w."""
-    w = 1.0 / torch.sqrt(1.0 + (r / huber) ** 2)
-    return 0.5 * (w * r * r).sum(), w
-
-
-def _lm_solve(h, g, lam):
-    """The damped normal equations' step; ``solve_ex`` does not wait on
-    the host to check the factorization (a failed one gives non-finite
-    entries, which the callers test)."""
-    eye = torch.eye(6, dtype=h.dtype, device=h.device)
-    a = h + lam * torch.diag(torch.diag(h)) + 1e-9 * eye
-    return torch.linalg.solve_ex(a, -g)[0]
-
-
 def _stacked(costs, tr):
     """The per-iteration costs as one tensor (empty for 0 iterations)."""
     return torch.stack(costs) if costs else tr.zero.new_zeros(0)
-
-
-def _lm_damping(accept, lam):
-    return torch.where(accept, torch.clamp_min(lam / 3.0, 1e-7),
-                       torch.clamp_max(lam * 5.0, 1e3))
 
 
 class _Tracker:
@@ -230,6 +212,8 @@ class _Tracker:
         self.cfg, self.tcfg = cfg, tcfg
         self.geometry = (tanfovx, tanfovy, height, width)
         self.sqc, self.sqd = math.sqrt(tcfg.w_color), math.sqrt(tcfg.w_depth)
+        self.red = dict(sil_threshold=tcfg.sil_threshold, sqc=self.sqc,
+                        sqd=self.sqd, huber=tcfg.huber)
         self.zero = torch.zeros(6, dtype=view0.dtype, device=view0.device)
         self.inf = torch.full((), math.inf, dtype=view0.dtype,
                               device=view0.device)
@@ -240,21 +224,26 @@ class _Tracker:
         return Camera(viewmatrix=view, tanfovx=tanfovx, tanfovy=tanfovy,
                       height=height, width=width)
 
-    def render(self, xi, **kw):
-        return rasterize(self.means, self.camera(lie.apply_twist(
-            self.view0, xi)), self.cfg, gt_depth=self.frame.depth,
-            **self.kw, **self.mk, **kw)
+    def render(self, view, **kw):
+        return rasterize(self.means, self.camera(view), self.cfg,
+                         gt_depth=self.frame.depth, **self.kw, **self.mk,
+                         **kw)
 
     def mask(self, out):
-        return ((out.opacity_map[0] > self.tcfg.sil_threshold)
-                & (self.frame.depth > 0)).to(self.frame.rgb.dtype)
+        return gn.tracking_mask(out.opacity_map[0], self.frame.depth,
+                                self.tcfg.sil_threshold,
+                                self.frame.rgb.dtype)
 
     def residuals(self, out, m):
-        sil = out.opacity_map[0]
-        rc = ((out.color - self.frame.rgb) * m[None]).reshape(-1)
-        depth_est = out.depth[0] / torch.clamp_min(sil, 1e-6)
-        rd = ((depth_est - self.frame.depth) * m).reshape(-1)
-        return torch.cat([self.sqc * rc, self.sqd * rd])
+        return gn.residuals(out.color, out.depth[0], out.opacity_map[0],
+                            self.frame.rgb, self.frame.depth, m, self.sqc,
+                            self.sqd)
+
+    def reduce(self, out, tangents, lm):
+        """``gn.gn_reduce`` of a render ``out`` against the frame."""
+        return gn.gn_reduce(out.color, out.depth[0], out.opacity_map[0],
+                            self.frame.rgb, self.frame.depth,
+                            tangents=tangents, lm=lm, **self.red)
 
 
 def _count_trial(accept):
@@ -270,7 +259,9 @@ def _track_gn(tr: _Tracker, binnings=None):
 
     The (N x 6) residual Jacobian comes from one ``rasterize_with_pose_jvp``
     (the render and its 6 twist-basis tangents in one dual pass) per
-    evaluation.  With ``freeze_binning`` the level bins once, at its start
+    evaluation; the twist basis, the normal equations and the LM update
+    are ``ops/kernels/gauss_newton.py``'s, their state (an ``LmState``) on
+    the device.  With ``freeze_binning`` the level bins once, at its start
     pose with ``bin_margin_px`` of slack and a budget scaled to the margin,
     and every render reuses that binning (appended to ``binnings`` when a
     list is given)."""
@@ -285,78 +276,38 @@ def _track_gn(tr: _Tracker, binnings=None):
                 **tr.kw)
         if binnings is not None:
             binnings.append(bkw["binn"])
+    st = gn.LmState.start(tcfg.lam0, tcfg.iters, tr.zero)
 
-    def gn_eval(xi):
+    def gn_eval(xi, mode, slot):
         with prof.span("track.gn_eval"):
-            view = lie.apply_twist(tr.view0, xi)
-            # twist-basis tangents of the view matrix at xi: [4, 4, 6]
-            tw = torch.func.jacfwd(lambda x: lie.apply_twist(tr.view0, x))(xi)
+            view, tw = gn.twist_tangents(tr.view0, xi)
             j = rasterize_with_pose_jvp(
-                tr.means, tr.camera(view), cfg, tw.movedim(-1, 0),
-                gt_depth=tr.frame.depth, **tr.kw, **tr.mk, **bkw)
-            out = j.out
-            m = tr.mask(out)
-            r = tr.residuals(out, m)
-            sil = out.opacity_map[0]
-            silc = torch.clamp_min(sil, 1e-6)
-            dsil = torch.where(sil > 1e-6, j.opacity_map,
-                               torch.zeros_like(j.opacity_map))  # [6, H, W]
-            jc = (j.color * m[None, None]).reshape(6, -1)
-            jd = ((j.depth * silc[None] - out.depth[0][None] * dsil)
-                  / (silc * silc)[None] * m[None]).reshape(6, -1)
-            jac = torch.cat([tr.sqc * jc, tr.sqd * jd], 1)      # [6, N]
-            cost, w = _huber_cost(r, tcfg.huber)
-            jw = jac * w[None, :]
-            return jw @ jac.T, jw @ r, cost
+                tr.means, tr.camera(view), cfg, tw, gt_depth=tr.frame.depth,
+                **tr.kw, **tr.mk, **bkw)
+            tr.reduce(j.out, (j.color, j.depth, j.opacity_map),
+                      (st, mode, slot))
 
-    def cost_at(xi):
+    def cost_at(xi, mode):
         with prof.span("track.cost"):
-            out = tr.render(xi, map_off=True, track_off=True, **bkw)
-            return _huber_cost(tr.residuals(out, tr.mask(out)),
-                               tcfg.huber)[0]
+            view, _ = gn.twist_tangents(tr.view0, xi, tangents=False)
+            out = tr.render(view, map_off=True, track_off=True, **bkw)
+            tr.reduce(out, None, (st, mode, 0))
 
-    lam = torch.full((), tcfg.lam0, dtype=tr.zero.dtype,
-                     device=tr.zero.device)
-    best_xi, best_cost, costs = tr.zero, tr.inf, []
     if tcfg.line_search:
-        xi = tr.zero
-        for _ in range(tcfg.iters):
-            h, g, cost = gn_eval(xi)
-            better = cost < best_cost
-            best_xi = torch.where(better, xi, best_xi)
-            best_cost = torch.where(better, cost, best_cost)
-            dx = _lm_solve(h, g, lam)
-            xi2 = xi + dx
-            accept = (cost_at(xi2) < cost) & torch.isfinite(dx).all()
-            _count_trial(accept)
-            xi = torch.where(accept, xi2, xi)
-            lam = _lm_damping(accept, lam)
-            costs.append(cost)
-        final = cost_at(xi)
-        better = final < best_cost
-        return (torch.where(better, xi, best_xi),
-                torch.where(better, final, best_cost), _stacked(costs, tr))
-
-    # deferred accept: anchor = last accepted point, dx = pending trial
-    # step; a rejected trial keeps the anchor and retries half the step
-    # with more damping.  best_* tracks every evaluated point.
-    anchor, dx, cost_anchor = tr.zero, tr.zero, tr.inf
-    for _ in range(tcfg.iters):
-        xi_try = anchor + dx
-        h, g, cost = gn_eval(xi_try)
-        better = cost < best_cost
-        best_xi = torch.where(better, xi_try, best_xi)
-        best_cost = torch.where(better, cost, best_cost)
-        accept = cost < cost_anchor
-        _count_trial(accept)
-        lam = _lm_damping(accept, lam)
-        dx_new = _lm_solve(h, g, lam)
-        ok = torch.isfinite(dx_new).all()
-        dx = torch.where(accept & ok, dx_new, 0.5 * dx)
-        anchor = torch.where(accept, xi_try, anchor)
-        cost_anchor = torch.where(accept, cost, cost_anchor)
-        costs.append(cost)
-    return best_xi, best_cost, _stacked(costs, tr)
+        # every step is validated by a residual render before it is taken
+        for i in range(tcfg.iters):
+            gn_eval(st.xi, gn.PROPOSE, i)
+            cost_at(st.trial, gn.DECIDE)
+            _count_trial(st.accepted)
+        cost_at(st.xi, gn.FINAL)
+    else:
+        # deferred accept: anchor = last accepted point, dx = pending trial
+        # step; a rejected trial keeps the anchor and retries half the step
+        # with more damping.  The best point tracks every evaluated one.
+        for i in range(tcfg.iters):
+            gn_eval(st.xi, gn.DEFERRED, i)
+            _count_trial(st.accepted)
+    return st.best_xi, st.best_cost, st.costs
 
 
 def _track_gn_fd(tr: _Tracker, binnings=None):
@@ -368,7 +319,8 @@ def _track_gn_fd(tr: _Tracker, binnings=None):
     eps = tcfg.fd_eps
 
     def render_out(xi):
-        return tr.render(xi, map_off=True, track_off=True)
+        return tr.render(lie.apply_twist(tr.view0, xi), map_off=True,
+                         track_off=True)
 
     def base_eval(xi):
         out = render_out(xi)
@@ -381,7 +333,7 @@ def _track_gn_fd(tr: _Tracker, binnings=None):
     basis = torch.eye(6, dtype=xi.dtype, device=xi.device) * eps
     for _ in range(tcfg.iters):
         r0, m = base_eval(xi)
-        cost, w = _huber_cost(r0, tcfg.huber)
+        cost, w = gn.huber_cost(r0, tcfg.huber)
         better = cost < best_cost
         best_xi = torch.where(better, xi, best_xi)
         best_cost = torch.where(better, cost, best_cost)
@@ -391,14 +343,14 @@ def _track_gn_fd(tr: _Tracker, binnings=None):
              - tr.residuals(render_out(xi - e), m)) / (2.0 * eps)
             for e in basis])                                    # [6, N]
         jw = jac * w[None, :]
-        dx = _lm_solve(jw @ jac.T, jw @ r0, lam)
+        dx = gn.lm_solve(jw @ jac.T, jw @ r0, lam)
         xi2 = xi + dx
-        accept = ((_huber_cost(base_eval(xi2)[0], tcfg.huber)[0] < cost)
+        accept = ((gn.huber_cost(base_eval(xi2)[0], tcfg.huber)[0] < cost)
                   & torch.isfinite(dx).all())
         xi = torch.where(accept, xi2, xi)
-        lam = _lm_damping(accept, lam)
+        lam = gn.lm_damping(accept, lam)
         costs.append(cost)
-    final = _huber_cost(base_eval(xi)[0], tcfg.huber)[0]
+    final = gn.huber_cost(base_eval(xi)[0], tcfg.huber)[0]
     better = final < best_cost
     return (torch.where(better, xi, best_xi),
             torch.where(better, final, best_cost), _stacked(costs, tr))
@@ -410,7 +362,7 @@ def _track_adam(tr: _Tracker, binnings=None):
     tcfg = tr.tcfg
 
     def loss_at(xi):
-        out = tr.render(xi, map_off=True)
+        out = tr.render(lie.apply_twist(tr.view0, xi), map_off=True)
         return rgbd_loss(out, tr.frame, tcfg.w_color, tcfg.w_depth,
                          tcfg.sil_threshold, tracking=True)
 
@@ -489,7 +441,7 @@ def track_frame(model: GaussianModel, view0, frame: Frame,
                 tr = _Tracker(work, view, fl.rgb, fl.depth, cfg, tcfg_l,
                               h // s, w // s, *fov, mk=mk)
                 xi, cost, costs = impl(tr, binnings)
-                view = lie.apply_twist(tr.view0, xi)
+                view, _ = gn.twist_tangents(tr.view0, xi, tangents=False)
     return view, cost, costs
 
 

@@ -56,6 +56,10 @@ SIGNATURES = {
         "preprocess_bwd": [_P] * 20,
         "preprocess_tangents": [_P] * 9 + [_I, _I, _P, _P],
     },
+    "gauss_newton": {
+        "twist_tangents": [_P] * 5,
+        "gn_reduce": [_P] * 12 + [_I, _I, _P],
+    },
 }
 
 _libs: dict = {}

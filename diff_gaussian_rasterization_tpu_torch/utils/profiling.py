@@ -350,7 +350,7 @@ def profile_breakdown(fn, n=3, top=12):
 PORT_KERNEL = re.compile(
     r"\b(?:render_fwd|tile_scatter_sum|render_bwd|"
     r"segment_sum_rows(?:_any)?|render_jvp|preprocess_fwd|preprocess_bwd|"
-    r"preprocess_view)_kernel(?:<[^>()]*>)?")
+    r"preprocess_view|twist_tangents|gn_reduce)_kernel(?:<[^>()]*>)?")
 
 
 def op_table(events, n=1):
